@@ -1,0 +1,46 @@
+"""The ported slice end to end against the JAX package at a reduced size:
+the flagship step ``boxblur(r=13) -> limiter(tv_range=True)`` that
+``__graft_entry__.py`` runs, the bench's 5-pass row, and the BoxBlur settings
+of ``benchmarks/tpu_parity.py`` (``boxblur_ct``, ``boxblur_x3``).  The JAX
+clip's state crosses over through ``from_reference``.
+
+Tolerance: every plane here is integer, so bit-exact.  Size: 4 frames of
+128x192 YUV420P16 (the bench runs 64 frames of 1920x1080).
+"""
+
+import numpy as np
+import pytest
+
+import vszip_tpu as vz
+import vszip_tpu_torch as vt
+from test_torch_core import assert_planes_match, make_planes
+
+N, H, W = 4, 128, 192
+
+STEPS = {
+    "flagship": (lambda m, c: m.limiter(m.boxblur(c, hradius=13, vradius=13),
+                                        tv_range=True)),
+    "bench_5pass": (lambda m, c: m.boxblur(c, hradius=13, hpasses=5, vradius=13,
+                                           vpasses=5)),
+    "boxblur_ct": lambda m, c: m.boxblur(c, hradius=13, vradius=13),
+    "boxblur_x3": (lambda m, c: m.boxblur(c, hradius=5, hpasses=3, vradius=5,
+                                          vpasses=3)),
+    "rt_single": lambda m, c: m.boxblur(c, hradius=23, vradius=23),
+}
+
+
+def _reference_clip(seed):
+    rng = np.random.default_rng(seed)
+    fmt = vz.get_format("YUV420P16")
+    return vz.Clip.from_planes(make_planes("YUV420P16", rng, N, H, W), fmt).device()
+
+
+@pytest.mark.parametrize("step", sorted(STEPS))
+def test_slice_matches_jax(step):
+    cj = _reference_clip(7)
+    ct = vt.from_reference([np.asarray(p) for p in cj.planes], "YUV420P16",
+                           device="cpu")
+    got = STEPS[step](vt, ct)
+    want = STEPS[step](vz, cj)
+    assert got.format == ct.format and got.num_frames == N
+    assert_planes_match(got.planes, want.planes)

@@ -1,0 +1,37 @@
+"""vszip_tpu_torch: the PyTorch/CUDA port of vszip_tpu for NVIDIA Hopper.
+
+The same surface as ``vszip_tpu`` for the ported slice: a ``Clip`` of
+``(N, H, W)`` plane tensors, the format and parameter layer, and the filters
+BoxBlur and Limiter with the same arguments, validation messages and
+results.  Integer BoxBlur runs hand-written CUDA kernels (``csrc/``) on CUDA
+tensors and their plain PyTorch versions on CPU tensors.  The package
+imports torch and never JAX.
+"""
+
+from .core.clip import WIPED_FORMAT, Clip, VariableClip, from_reference
+from .core.format import (
+    ColorFamily,
+    ColorRange,
+    SampleType,
+    VideoFormat,
+    get_format,
+)
+from .core.params import VSZipError
+from .ops import boxblur, limiter
+
+__all__ = [
+    "Clip",
+    "VariableClip",
+    "WIPED_FORMAT",
+    "from_reference",
+    "ColorFamily",
+    "ColorRange",
+    "SampleType",
+    "VideoFormat",
+    "get_format",
+    "VSZipError",
+    "boxblur",
+    "limiter",
+]
+
+__version__ = "0.1.0"
