@@ -129,7 +129,10 @@ def test_wrappers_raise_on_other_devices():
 def test_failed_build_raises(monkeypatch, tmp_path):
     import torch.utils.cpp_extension as ce
 
+    from vszip_tpu_torch import _build
+
     monkeypatch.setattr(ce, "CUDA_HOME", str(tmp_path / "no-cuda"))
-    monkeypatch.setattr(kt, "BUILD_DIR", tmp_path / "build")
+    monkeypatch.setattr(_build, "BUILD_DIR", tmp_path / "build")
     with pytest.raises(RuntimeError, match="nvcc"):
-        kt.build()
+        _build.build("boxblur")
+    assert not (tmp_path / "build").exists()

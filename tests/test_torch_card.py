@@ -1,12 +1,14 @@
 """The CUDA kernels on the card: each against its plain PyTorch version, the
-slice on the card against the port's CPU path, the launch counters, and the
+slice (BoxBlur, Limiter, Deband) on the card against the port's CPU path, the launch counters, and the
 wrappers' input checks.  Every test here needs an NVIDIA GPU and skips
 without one.  This file imports no JAX (the card's machine has none), so it
 runs there on its own, without tests/conftest.py:
 
     python -m pytest --noconftest -m cuda tests/test_torch_card.py
 
-Tolerance: all integer, so every comparison is bit-exact.
+Tolerance: every plane compared here is integer, so bit-exact (Deband m6's
+f32 soft blend included: the kernel builds without FMA contraction and
+rounds as the plain torch ops do).
 """
 
 import numpy as np
@@ -15,6 +17,7 @@ import torch
 
 import vszip_tpu_torch as vt
 from vszip_tpu_torch.kernels import boxblur as kb
+from vszip_tpu_torch.kernels import deband as kd
 
 pytestmark = pytest.mark.cuda
 
@@ -82,7 +85,7 @@ def test_boxblur_on_card_matches_cpu(cuda, args):
     fmt = vt.get_format("YUV420P16")
     planes = [rng.integers(0, 1 << 16, (2,) + fmt.plane_dims(192, 128, p)[::-1],
                            dtype=np.uint16) for p in range(3)]
-    cpu = vt.Clip.from_planes(planes, fmt)
+    cpu = vt.Clip.from_planes(planes, fmt, device="cpu")
     kb.reset_launches()
     got = vt.limiter(vt.boxblur(cpu.to(cuda), **args), tv_range=True)
     assert sum(kb.LAUNCHES.values()) > 0
@@ -101,3 +104,81 @@ def test_wrappers_reject_what_kernels_do_not_take(cuda):
         kb.ct_blur_int(x, 16)
     with pytest.raises(ValueError, match="passes >= 1"):
         kb.rt_blur_v_multi(x, 3, 0)
+
+
+def _offsets(shape, rmax, device, signed, seed=0):
+    """Seeded offsets in [0, cap] (or [-cap, cap]), cap = min(rmax, the
+    distance to the nearest edge)."""
+    h, w = shape
+    rng = np.random.default_rng(seed)
+    ys = np.minimum(np.arange(h), h - 1 - np.arange(h))[:, None]
+    xs = np.minimum(np.arange(w), w - 1 - np.arange(w))[None, :]
+    cap = np.minimum(rmax, np.minimum(ys, xs))
+    v = rng.integers(-rmax if signed else 0, rmax + 1, (h, w))
+    return torch.from_numpy(np.clip(v, -cap if signed else 0, cap).astype(np.int32)).to(device)
+
+
+@pytest.mark.parametrize("shape", [(2, 33, 77), (1, 7, 13), (2, 540, 960)], ids=str)
+def test_deband_kernels_match_plain(cuda, shape):
+    x = _rand(shape, torch.uint16, cuda, seed=2)
+    for rmax in (1, 15, 100):
+        v = _offsets(shape[1:], rmax, cuda, signed=False)
+        for mode in kd.SEPARABLE_MODES:
+            for bf in (True, False):
+                thr3 = (12337, 20000, 6000)
+                assert torch.equal(kd.deband_center(x, v, mode, bf, rmax, thr3),
+                                   kd.deband_center_ref(x, v, mode, bf, rmax, thr3))
+    for rmax in (15, 64, 200):
+        v1 = _offsets(shape[1:], rmax, cuda, signed=True, seed=1)
+        v2 = _offsets(shape[1:], rmax, cuda, signed=True, seed=2)
+        key = (v1 + rmax) * (2 * rmax + 1) + (v2 + rmax)
+        for bf in (True, False):
+            assert torch.equal(kd.deband_m2_center(x, key, bf, rmax, 12337),
+                               kd.deband_m2_center_ref(x, key, bf, rmax, 12337))
+
+
+def test_deband_kernels_read_any_offset_plane(cuda):
+    # offsets past the edges: B5 reads 0 there, B6 clamps, as the plain
+    # versions do
+    x = _rand((2, 40, 50), torch.uint16, cuda, seed=3)
+    g = torch.Generator(device=cuda).manual_seed(4)
+    wild = torch.randint(-300, 300, (40, 50), generator=g, device=cuda, dtype=torch.int32)
+    for mode in kd.SEPARABLE_MODES:
+        assert torch.equal(kd.deband_center(x, wild, mode, True, 15, (900, 900, 900)),
+                           kd.deband_center_ref(x, wild, mode, True, 15, (900, 900, 900)))
+    assert torch.equal(kd.deband_m2_center(x, wild, False, 15, 900),
+                       kd.deband_m2_center_ref(x, wild, False, 15, 900))
+
+
+@pytest.mark.parametrize("fmt,args", [
+    ("YUV420P16", {"sample_mode": 1}),
+    ("YUV420P16", {}),
+    ("YUV420P16", {"sample_mode": 6, "thr": 30, "grain": [8, 4], "dynamic_grain": True}),
+    ("YUV422P16", {"thr": 20}),
+    ("YUV420P8", {"sample_mode": 4, "thr": 20}),
+    ("GRAY16", {"range": 200, "thr": 40}),
+], ids=str)
+def test_deband_on_card_matches_cpu(cuda, fmt, args):
+    rng = np.random.default_rng(5)
+    f = vt.get_format(fmt)
+    planes = [rng.integers(0, 1 << f.bits_per_sample,
+                           (2,) + f.plane_dims(272, 160, p)[::-1]).astype(f.storage_dtype)
+              for p in range(f.num_planes)]
+    cpu = vt.Clip.from_planes(planes, f, device="cpu")
+    kd.reset_launches()
+    got = vt.deband(cpu.to(cuda), **args)
+    assert sum(kd.LAUNCHES.values()) > 0  # every case runs B5 or B6 on some plane
+    want = vt.deband(cpu, **args)
+    for g, w in zip(got.planes, want.planes):
+        assert g.is_cuda and _same(g.cpu(), w)
+
+
+def test_deband_wrappers_reject_what_kernels_do_not_take(cuda):
+    x = _rand((2, 32, 48), torch.uint16, cuda)
+    v = torch.zeros((32, 48), dtype=torch.int32, device=cuda)
+    with pytest.raises(ValueError, match="uint16"):
+        kd.deband_center(x.to(torch.int32), v, 1, True, 4, (1, 1, 1))
+    with pytest.raises(ValueError, match="offset plane"):
+        kd.deband_m2_center(x, v[:16], True, 4, 1)
+    with pytest.raises(ValueError, match="modes"):
+        kd.deband_center(x, v, 2, True, 4, (1, 1, 1))

@@ -46,7 +46,7 @@ def make_planes(fmt_name, rng, n=2, h=56, w=96):
 def both_clips(fmt_name, planes):
     """The same planes as a vszip_tpu clip and a vszip_tpu_torch clip."""
     return (vz.Clip.from_planes(planes, vz.get_format(fmt_name)),
-            vt.Clip.from_planes(planes, vt.get_format(fmt_name)))
+            vt.Clip.from_planes(planes, vt.get_format(fmt_name), device="cpu"))
 
 
 def assert_planes_match(got, want):
@@ -217,9 +217,25 @@ def test_from_planes_errors_match():
     jf, tf = vz.get_format("YUV420P16"), vt.get_format("YUV420P16")
     for planes in ((y, u), (y, u, v[0]), (y, u[:, :, :15], v), (y, v[:, :7], u)):
         same_error(lambda: vz.Clip.from_planes(planes, jf),
-                   lambda: vt.Clip.from_planes(planes, tf), ValueError)
+                   lambda: vt.Clip.from_planes(planes, tf, device="cpu"), ValueError)
     with pytest.raises(ValueError, match=r"plane 1 dtype torch.uint8 != torch.uint16"):
-        vt.Clip.from_planes((y, u.astype(np.uint8), v), tf)
+        vt.Clip.from_planes((y, u.astype(np.uint8), v), tf, device="cpu")
+
+
+def test_constructors_default_to_the_card():
+    rng = np.random.default_rng(4)
+    planes = make_planes("YUV420P16", rng, 1, 8, 16)
+    fmt = vt.get_format("YUV420P16")
+    calls = (lambda: vt.Clip.from_planes(planes, fmt),
+             lambda: vt.Clip.blank(fmt, 16, 8))
+    for call in calls:
+        if torch.cuda.is_available():
+            assert all(p.is_cuda for p in call().planes)
+        else:  # torch's own error, never a clip left on the CPU
+            with pytest.raises((AssertionError, RuntimeError)):
+                call()
+    cpu = vt.Clip.from_planes([torch.from_numpy(p) for p in planes], fmt, device="cpu")
+    assert all(p.device.type == "cpu" for p in cpu.planes)
 
 
 def test_clip_accessors_match():
@@ -235,7 +251,8 @@ def test_clip_accessors_match():
         assert (ct.with_props(_ColorRange=cr).color_range().value
                 == cj.with_props(_ColorRange=cr).color_range().value)
     assert ct.with_props(_ColorRange=torch.tensor([0, 1])).color_range() is vt.ColorRange.FULL
-    assert vt.Clip.blank(vt.get_format("RGB24"), 8, 4).color_range() is vt.ColorRange.FULL
+    assert (vt.Clip.blank(vt.get_format("RGB24"), 8, 4, device="cpu").color_range()
+            is vt.ColorRange.FULL)
     f1 = ct.frame(1)
     assert f1.num_frames == 1
     assert_planes_match(f1.planes, cj.frame(1).planes)
@@ -251,7 +268,7 @@ def test_clip_accessors_match():
             if value == [1, 2, 3] and fmt == "GRAYS":
                 continue
             bj = vz.Clip.blank(vz.get_format(fmt), 12, 8, 2, value=value)
-            bt = vt.Clip.blank(vt.get_format(fmt), 12, 8, 2, value=value)
+            bt = vt.Clip.blank(vt.get_format(fmt), 12, 8, 2, value=value, device="cpu")
             assert_planes_match(bt.planes, bj.planes)
 
 

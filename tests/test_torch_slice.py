@@ -1,8 +1,10 @@
 """The ported slice end to end against the JAX package at a reduced size:
 the flagship step ``boxblur(r=13) -> limiter(tv_range=True)`` that
-``__graft_entry__.py`` runs, the bench's 5-pass row, and the BoxBlur settings
-of ``benchmarks/tpu_parity.py`` (``boxblur_ct``, ``boxblur_x3``).  The JAX
-clip's state crosses over through ``from_reference``.
+``__graft_entry__.py`` runs, the bench's 5-pass row, the BoxBlur settings
+of ``benchmarks/tpu_parity.py`` (``boxblur_ct``, ``boxblur_x3``), and the
+bench's two Deband rows (``deband(sample_mode=1)`` and ``deband()``,
+``bench.py:113-116``).  The JAX clip's state crosses over through
+``from_reference``.
 
 Tolerance: every plane here is integer, so bit-exact.  Size: 4 frames of
 128x192 YUV420P16 (the bench runs 64 frames of 1920x1080).
@@ -26,6 +28,8 @@ STEPS = {
     "boxblur_x3": (lambda m, c: m.boxblur(c, hradius=5, hpasses=3, vradius=5,
                                           vpasses=3)),
     "rt_single": lambda m, c: m.boxblur(c, hradius=23, vradius=23),
+    "deband_m1": lambda m, c: m.deband(c, sample_mode=1),
+    "deband_m2": lambda m, c: m.deband(c),
 }
 
 

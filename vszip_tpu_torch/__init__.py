@@ -2,10 +2,11 @@
 
 The same surface as ``vszip_tpu`` for the ported slice: a ``Clip`` of
 ``(N, H, W)`` plane tensors, the format and parameter layer, and the filters
-BoxBlur and Limiter with the same arguments, validation messages and
-results.  Integer BoxBlur runs hand-written CUDA kernels (``csrc/``) on CUDA
-tensors and their plain PyTorch versions on CPU tensors.  The package
-imports torch and never JAX.
+BoxBlur, Deband and Limiter with the same arguments, validation messages
+and results.  Integer BoxBlur and Deband run hand-written CUDA kernels
+(``csrc/``) on CUDA tensors and their plain PyTorch versions on CPU tensors.
+Clips are made on the card unless the caller asks for another device.  The
+package imports torch and never JAX.
 """
 
 from .core.clip import WIPED_FORMAT, Clip, VariableClip, from_reference
@@ -17,7 +18,7 @@ from .core.format import (
     get_format,
 )
 from .core.params import VSZipError
-from .ops import boxblur, limiter
+from .ops import boxblur, deband, limiter
 
 __all__ = [
     "Clip",
@@ -31,6 +32,7 @@ __all__ = [
     "get_format",
     "VSZipError",
     "boxblur",
+    "deband",
     "limiter",
 ]
 

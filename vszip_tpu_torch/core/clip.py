@@ -3,8 +3,10 @@
 The same model as ``vszip_tpu.core.clip``: a clip holds one ``(N, H, W)``
 tensor per plane (N = frames) plus a constant format and a props dict.
 Subsampled chroma planes are separate tensors, since 4:2:0 planes are ragged.
-The tensors stay on whatever device they were made on; ``to(device)`` moves
-them, and every op runs on the device its input planes lie on.
+``from_planes`` and ``blank`` put the planes on the card unless the caller
+asks for another device (``device="cpu"``); without a card they raise
+torch's own error rather than stay on the CPU.  ``to(device)`` moves a clip,
+and every op runs on the device its input planes lie on.
 """
 
 from __future__ import annotations
@@ -46,8 +48,9 @@ class Clip:
     # -- constructors ---------------------------------------------------------
 
     @classmethod
-    def from_planes(cls, planes, fmt: VideoFormat, props: Mapping[str, Any] | None = None) -> "Clip":
-        """Clip from tensors or NumPy arrays (arrays become CPU tensors)."""
+    def from_planes(cls, planes, fmt: VideoFormat, props: Mapping[str, Any] | None = None,
+                    *, device: torch.device | str = "cuda") -> "Clip":
+        """Clip from tensors or NumPy arrays, every plane on `device`."""
         planes = tuple(_as_tensor(p) for p in planes)
         if len(planes) != fmt.num_planes:
             raise ValueError(
@@ -66,15 +69,11 @@ class Clip:
                 raise ValueError(
                     f"plane {p} dtype {arr.dtype} != {fmt.torch_dtype} for {fmt.name}"
                 )
-            if arr.device != planes[0].device:
-                raise ValueError(
-                    f"plane {p} is on {arr.device}, plane 0 on {planes[0].device}"
-                )
-        return cls(planes, fmt, dict(props or {}))
+        return cls(tuple(p.to(device) for p in planes), fmt, dict(props or {}))
 
     @classmethod
     def blank(cls, fmt: VideoFormat, width: int, height: int, num_frames: int = 1,
-              value=None, device: torch.device | str = "cpu") -> "Clip":
+              value=None, device: torch.device | str = "cuda") -> "Clip":
         """BlankClip equivalent: neutral gray unless `value` given."""
         planes = []
         for p in range(fmt.num_planes):
@@ -88,7 +87,7 @@ class Clip:
                 v = (1 << (fmt.bits_per_sample - 1)) if chroma else 0
             planes.append(torch.full((num_frames, ph, pw), v,
                                      dtype=fmt.torch_dtype, device=device))
-        return cls.from_planes(planes, fmt)
+        return cls.from_planes(planes, fmt, device=device)
 
     # -- accessors -------------------------------------------------------------
 
@@ -158,10 +157,10 @@ def from_reference(planes, format_name: str, props: Mapping[str, Any] | None = N
     ``props`` its props (arrays become tensors, scalars stay as they are).
     The clip and its props are the whole state of the ported ops."""
     fmt = get_format(format_name)
-    tensors = tuple(_as_tensor(p).to(device) for p in planes)
+    tensors = tuple(_as_tensor(p) for p in planes)
     conv = {k: _as_tensor(v).to(device) if isinstance(v, np.ndarray) else v
             for k, v in (props or {}).items()}
-    return Clip.from_planes(tensors, fmt, conv)
+    return Clip.from_planes(tensors, fmt, conv, device=device)
 
 
 def _reject_variable_format():

@@ -35,24 +35,16 @@ fusing those is later work.
 from __future__ import annotations
 
 import ctypes
-import hashlib
-import os
-import subprocess
 from functools import lru_cache
-from pathlib import Path
 
 import torch
+
+from .. import _build
 
 # Launches made on the CUDA path, per wrapper.  Each wrapper adds one where
 # it launches its kernel(s) and nowhere else; the plain versions never count.
 LAUNCHES = {"ct_blur_int": 0, "rt_blur_h": 0, "rt_blur_v_multi": 0,
             "rt_blur_v": 0}
-
-_CSRC = Path(__file__).resolve().parent.parent / "csrc"
-_SOURCES = ("boxblur.cu",)
-BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "vszip_tpu_torch"
-NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 
 def reset_launches() -> None:
@@ -158,51 +150,12 @@ def ct_blur_int_ref(x: torch.Tensor, radius: int) -> torch.Tensor:
 
 
 # ---------------------------------------------------------------------------
-# build and bind
+# bind (the library is built by ``_build`` at the first launch)
 # ---------------------------------------------------------------------------
-
-def _nvcc() -> str:
-    from torch.utils.cpp_extension import CUDA_HOME
-
-    if CUDA_HOME is None:
-        raise RuntimeError("vszip_tpu_torch: no CUDA toolkit found (set CUDA_HOME)")
-    nvcc = Path(CUDA_HOME) / "bin" / "nvcc"
-    if not nvcc.exists():
-        raise RuntimeError(f"vszip_tpu_torch: {nvcc} not found")
-    return str(nvcc)
-
-
-def library_path() -> Path:
-    """Where the kernel library for the current sources lives, keyed by a
-    hash of the sources and flags."""
-    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for name in _SOURCES:
-        h.update((_CSRC / name).read_bytes())
-    return BUILD_DIR / f"boxblur_{h.hexdigest()[:16]}.so"
-
-
-def build() -> Path:
-    """Compile the kernels with nvcc unless the library for these sources
-    already exists; returns its path.  nvcc's output (with ``-Xptxas -v``,
-    each kernel's registers and shared memory) goes beside it as ``.log``."""
-    so = library_path()
-    if so.exists():
-        return so
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = so.with_suffix(f".{os.getpid()}.tmp")
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), *(str(_CSRC / s) for s in _SOURCES)]
-    res = subprocess.run(cmd, capture_output=True, text=True)
-    so.with_suffix(".log").write_text(res.stdout + res.stderr)
-    if res.returncode != 0:
-        raise RuntimeError(
-            f"vszip_tpu_torch: nvcc failed ({res.returncode}):\n{res.stderr}")
-    os.replace(tmp, so)
-    return so
-
 
 @lru_cache(maxsize=1)
 def _lib() -> ctypes.CDLL:
-    lib = ctypes.CDLL(str(build()))
+    lib = _build.load("boxblur")
     p, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
     lib.vz_v_fixed.argtypes = [p, p, p, i, i, i, i, i, i, p]
     lib.vz_h_fixed.argtypes = [p, p, i, ll, i, i, i, p]
@@ -231,24 +184,14 @@ def _check(x: torch.Tensor, radius: int, axes: tuple[int, ...], passes: int = 1)
             f"vszip_tpu_torch: BoxBlur kernels do not take radius {radius} on {tuple(x.shape)}")
 
 
-def _run(fn, *args) -> None:
-    err = fn(*args)
-    if err != 0:
-        raise RuntimeError(f"vszip_tpu_torch: {fn.__name__} failed with CUDA error {err}")
-
-
-def _stream(x: torch.Tensor) -> int:
-    return torch.cuda.current_stream(x.device).cuda_stream
-
-
 def _v_fixed(x: torch.Tensor, radius: int, passes: int) -> torch.Tensor:
     n, h, w = x.shape
     out = torch.empty_like(x)
     scratch = torch.empty_like(x) if passes > 1 else None
     with torch.cuda.device(x.device):
-        _run(_lib().vz_v_fixed, x.data_ptr(), out.data_ptr(),
-             None if scratch is None else scratch.data_ptr(), x.element_size(),
-             n, h, w, radius, passes, _stream(x))
+        _build.check(_lib().vz_v_fixed, x.data_ptr(), out.data_ptr(),
+                     None if scratch is None else scratch.data_ptr(), x.element_size(),
+                     n, h, w, radius, passes, _build.stream(x))
     return out
 
 
@@ -256,8 +199,8 @@ def _h_fixed(x: torch.Tensor, radius: int, passes: int) -> torch.Tensor:
     n, h, w = x.shape
     out = torch.empty_like(x)
     with torch.cuda.device(x.device):
-        _run(_lib().vz_h_fixed, x.data_ptr(), out.data_ptr(), x.element_size(),
-             n * h, w, radius, passes, _stream(x))
+        _build.check(_lib().vz_h_fixed, x.data_ptr(), out.data_ptr(),
+                     x.element_size(), n * h, w, radius, passes, _build.stream(x))
     return out
 
 
@@ -273,8 +216,8 @@ def ct_blur_int(x: torch.Tensor, radius: int) -> torch.Tensor:
     n, h, w = x.shape
     tmp = torch.empty_like(x)
     with torch.cuda.device(x.device):
-        _run(_lib().vz_ct_v_quant, x.data_ptr(), tmp.data_ptr(), x.element_size(),
-             n, h, w, radius, _stream(x))
+        _build.check(_lib().vz_ct_v_quant, x.data_ptr(), tmp.data_ptr(),
+                     x.element_size(), n, h, w, radius, _build.stream(x))
     out = _h_fixed(tmp, radius, 1)
     LAUNCHES["ct_blur_int"] += 1
     return out

@@ -1,4 +1,5 @@
 from .boxblur import boxblur
+from .deband import deband
 from .limiter import limiter
 
-__all__ = ["boxblur", "limiter"]
+__all__ = ["boxblur", "deband", "limiter"]
