@@ -1,14 +1,15 @@
 """The CUDA kernels on the card: each against its plain PyTorch version, the
-slice (BoxBlur, Limiter, Deband) on the card against the port's CPU path, the launch counters, and the
-wrappers' input checks.  Every test here needs an NVIDIA GPU and skips
+slice (BoxBlur, Limiter, Deband, CLAHE, EEDI3) on the card against the
+port's CPU path, the launch counters, and the wrappers' input checks.  Every test here needs an NVIDIA GPU and skips
 without one.  This file imports no JAX (the card's machine has none), so it
 runs there on its own, without tests/conftest.py:
 
     python -m pytest --noconftest -m cuda tests/test_torch_card.py
 
-Tolerance: every plane compared here is integer, so bit-exact (Deband m6's
-f32 soft blend included: the kernel builds without FMA contraction and
-rounds as the plain torch ops do).
+Tolerance: bit-exact everywhere, floats included (Deband m6's soft blend,
+CLAHE's blend, EEDI3's costs, DP and interpolation): those kernels build
+without FMA contraction and round each product and sum as the plain torch
+ops do, so EEDI3's outputs and direction paths are equal, not close.
 """
 
 import numpy as np
@@ -17,7 +18,11 @@ import torch
 
 import vszip_tpu_torch as vt
 from vszip_tpu_torch.kernels import boxblur as kb
+from vszip_tpu_torch.kernels import clahe as kc
 from vszip_tpu_torch.kernels import deband as kd
+from vszip_tpu_torch.kernels import eedi3 as ke
+from vszip_tpu_torch.ops.clahe import _cells_8bit
+from vszip_tpu_torch.ops.eedi3 import _pad_rows
 
 pytestmark = pytest.mark.cuda
 
@@ -182,3 +187,171 @@ def test_deband_wrappers_reject_what_kernels_do_not_take(cuda):
         kd.deband_m2_center(x, v[:16], True, 4, 1)
     with pytest.raises(ValueError, match="modes"):
         kd.deband_center(x, v, 2, True, 4, (1, 1, 1))
+
+
+# ---------------------------------------------------------------------------
+# CLAHE (B7) and EEDI3 (B8-B10)
+# ---------------------------------------------------------------------------
+
+def _clahe_inputs(shape, tiles_x, tiles_y, device, seed=0):
+    """A plane, a random packed table and the op's fractions for it."""
+    n, h, w = shape
+    tile_h, tile_w = h // tiles_y, w // tiles_x
+    (ty1r, _, tx1r, _), ya, xa = _cells_8bit(h, w, tile_h, tile_w, tiles_y, tiles_x)
+    g = torch.Generator(device=device).manual_seed(seed)
+    tab = torch.randint(-2**31, 2**31 - 1, (n, len(ty1r), len(tx1r) * 256), generator=g,
+                        device=device, dtype=torch.int64).to(torch.int32)
+    return (_rand(shape, torch.uint8, device, seed), tab, torch.from_numpy(ya).to(device),
+            torch.from_numpy(xa).to(device), tile_h, tile_w)
+
+
+@pytest.mark.parametrize("shape,tiles", [((2, 1080, 1920), (3, 3)), ((2, 540, 960), (8, 8)),
+                                         ((3, 33, 77), (1, 1)), ((1, 7, 13), (4, 2)),
+                                         ((1, 200, 300), (60, 40))], ids=str)
+def test_clahe_kernel_matches_plain(cuda, shape, tiles):
+    args = _clahe_inputs(shape, *tiles, cuda)
+    assert torch.equal(kc.clahe8_lookup(*args), kc.clahe8_lookup_ref(*args))
+
+
+@pytest.mark.parametrize("fmt,args", [("GRAY8", {}), ("YUV420P8", {"tiles": [4, 2], "limit": 40}),
+                                      ("GRAY16", {"limit": 1})], ids=str)
+def test_clahe_on_card_matches_cpu(cuda, fmt, args):
+    rng = np.random.default_rng(6)
+    f = vt.get_format(fmt)
+    planes = [rng.integers(0, 1 << f.bits_per_sample,
+                           (2,) + f.plane_dims(193, 131, p)[::-1]).astype(f.storage_dtype)
+              for p in range(f.num_planes)]
+    cpu = vt.Clip.from_planes(planes, f, device="cpu")
+    kc.reset_launches()
+    got = vt.clahe(cpu.to(cuda), **args)
+    assert kc.LAUNCHES["clahe8_lookup"] == (f.num_planes if f.bits_per_sample == 8 else 0)
+    want = vt.clahe(cpu, **args)
+    for g, w in zip(got.planes, want.planes):
+        assert g.is_cuda and _same(g.cpu(), w)
+
+
+def smooth_rows(b, l, w, seed):
+    """Four (b, l, w) neighbour rows of a ramp with a soft diagonal edge and
+    faint noise: content with near-ties in the DP."""
+    rng = np.random.default_rng(seed)
+    y = np.arange(l, dtype=np.float64)[:, None]
+    x = np.arange(w, dtype=np.float64)[None, :]
+    rows = []
+    for k, dy in enumerate((-3, -1, 1, 3)):
+        edge = 1.0 / (1.0 + np.exp(-(x - 0.7 * (2 * y + dy) - w / 3) / 6.0))
+        img = 0.3 * x / w + 0.5 * edge + 1e-3 * rng.random((b, l, w))
+        rows.append(torch.from_numpy(img.astype(np.float32)))
+    return rows
+
+
+def _eedi3_rows(b, l, w, seed, device, smooth=False):
+    if smooth:
+        rows = smooth_rows(b, l, w, seed)
+    else:
+        g = torch.Generator().manual_seed(seed)
+        rows = [torch.rand((b, l, w), generator=g) for _ in range(4)]
+    return [_pad_rows(r.to(device)).contiguous() for r in rows]
+
+
+COEFS = (0.2 / 3, 0.25 / 255, 20.0 / 255, 0.55)
+
+
+@pytest.mark.parametrize("w,mdis,nrad", [(1920, 20, 2), (77, 3, 1), (1920, 40, 3), (5, 3, 0)],
+                         ids=str)
+@pytest.mark.parametrize("smooth", [False, True], ids=["noise", "smooth"])
+def test_eedi3_kernels_match_plain(cuda, w, mdis, nrad, smooth):
+    rows = _eedi3_rows(2, 3, w, 1, cuda, smooth)
+    a, b, g, om = (float(np.float32(c)) for c in COEFS)
+    gm = torch.Generator().manual_seed(2)
+    mask = (torch.rand((2, 3, w), generator=gm) > 0.3).to(cuda)
+    for bm in (None, mask):
+        out, fp = ke.eedi3_fused(*rows, w, mdis, nrad, a, b, g, om, bm)
+        ro, rf = ke.eedi3_fused_ref(*rows, w, mdis, nrad, a, b, g, om, bm)
+        assert torch.equal(fp, rf) and torch.equal(out, ro)
+    out, fp = ke.eedi3_fused_hp(*rows, w, mdis, nrad, a, b, g, om)
+    ro, rf = ke.eedi3_fused_hp_ref(*rows, w, mdis, nrad, a, b, g, om)
+    assert torch.equal(fp, rf) and torch.equal(out, ro)
+
+
+@pytest.mark.parametrize("hp", [False, True])
+def test_eedi3_kernels_match_plain_on_ties(cuda, hp):
+    # flat content with beta = gamma = 0: every DP candidate ties, so the
+    # path is the candidate order alone
+    w = 300
+    row = torch.zeros((2, 3, w))
+    row[..., w // 2:] = torch.rand((2, 3, w - w // 2), generator=torch.Generator().manual_seed(4))
+    rows = [_pad_rows(row.to(cuda)).contiguous() for _ in range(4)]
+    a, om = float(np.float32(COEFS[0])), float(np.float32(COEFS[3]))
+    mask = (torch.rand((2, 3, w), generator=torch.Generator().manual_seed(6)) > 0.3).to(cuda)
+    if hp:
+        pairs = [(ke.eedi3_fused_hp(*rows, w, 6, 2, a, 0.0, 0.0, om),
+                  ke.eedi3_fused_hp_ref(*rows, w, 6, 2, a, 0.0, 0.0, om))]
+    else:
+        pairs = [(ke.eedi3_fused(*rows, w, 6, 2, a, 0.0, 0.0, om, bm),
+                  ke.eedi3_fused_ref(*rows, w, 6, 2, a, 0.0, 0.0, om, bm)) for bm in (None, mask)]
+    for (out, fp), (ro, rf) in pairs:
+        assert torch.equal(fp, rf) and torch.equal(out, ro)
+
+
+@pytest.mark.parametrize("hp", [False, True])
+@pytest.mark.parametrize("mode", [1, 2, 3])
+@pytest.mark.parametrize("w,mdis", [(1920, 20), (77, 3)], ids=str)
+def test_vcheck_kernel_matches_plain(cuda, hp, mode, w, mdis):
+    g = torch.Generator().manual_seed(10 * mode + hp)
+    n_off, b = 9, 3
+    drange = 2 * mdis if hp else mdis
+    args = [torch.rand(s, generator=g).to(cuda) for s in
+            ((n_off, b, w), (n_off, 3, b, w))]
+    dm = torch.randint(-drange, drange + 1, (n_off, 3, b, w), generator=g,
+                       dtype=torch.int32).to(cuda)
+    cint, init = torch.rand((n_off, b, w), generator=g).to(cuda), torch.rand((b, w), generator=g).to(cuda)
+    rc = [float(np.float32(v)) for v in (255 / 32, 255 / 64, 1 / 4, 4)]
+    got = ke.vcheck(args[0], args[1], dm, cint, init, w, mdis, hp, mode, *rc)
+    want = ke.vcheck_ref(args[0], args[1], dm, cint, init, w, mdis, hp, mode, *rc)
+    assert torch.equal(got, want)
+
+
+@pytest.mark.parametrize("fn,fmt,args", [
+    ("eedi3", "GRAYS", {"field": 1, "dh": True}),
+    ("eedi3", "YUV420PS", {"field": 2, "mdis": 6, "vcheck": 3}),
+    ("eedi3", "GRAYS", {"field": 0, "hp": True, "mdis": 5}),
+    ("eedi3h", "GRAYS", {"field": 1, "mdis": 4, "nrad": 3, "vcheck": 1}),
+    ("eedi3", "GRAYS", {"field": 1, "mdis": 4, "mclip": True}),
+    ("eedi3", "GRAYS", {"field": 1, "mdis": 4, "hp": True, "mclip": True}),
+], ids=str)
+def test_eedi3_on_card_matches_cpu(cuda, fn, fmt, args):
+    rng = np.random.default_rng(8)
+    f = vt.get_format(fmt)
+    planes = [rng.random((2,) + f.plane_dims(96, 64, p)[::-1], dtype=np.float32)
+              for p in range(f.num_planes)]
+    cpu = vt.Clip.from_planes(planes, f, device="cpu")
+    args = dict(args)
+    mclip = None
+    if args.pop("mclip", False):
+        m = (rng.random((2, 64, 96)) > 0.4).astype(np.uint8) * 255
+        mclip = vt.Clip.from_planes([m], vt.get_format("GRAY8"), device="cpu")
+        args["mclip"] = mclip
+    ke.reset_launches()
+    card_args = dict(args, mclip=mclip.to(cuda)) if mclip is not None else args
+    got = getattr(vt, fn)(cpu.to(cuda), **card_args)
+    hp_mask = args.get("hp") and mclip is not None
+    assert sum(ke.LAUNCHES.values()) > 0 or hp_mask
+    want = getattr(vt, fn)(cpu, **args)
+    for g, w in zip(got.planes, want.planes):
+        assert g.is_cuda and g.shape == w.shape and torch.equal(g.cpu(), w)
+
+
+def test_eedi3_wrappers_reject_what_kernels_do_not_take(cuda):
+    rows = _eedi3_rows(1, 2, 40, 0, cuda)
+    with pytest.raises(ValueError, match="rows"):
+        ke.eedi3_fused(*rows, 41, 3, 1, 0.1, 0.1, 0.1, 0.8)
+    with pytest.raises(ValueError, match="mdis"):
+        ke.eedi3_fused_hp(*rows, 40, 41, 1, 0.1, 0.1, 0.1, 0.8)
+    with pytest.raises(ValueError, match="mask"):
+        ke.eedi3_fused(*rows, 40, 3, 1, 0.1, 0.1, 0.1, 0.8,
+                       torch.ones((1, 2, 40), dtype=torch.uint8, device=cuda))
+    x = _rand((1, 16, 16), torch.uint8, cuda)
+    tab = torch.zeros((1, 2, 512), dtype=torch.int32, device=cuda)
+    with pytest.raises(ValueError, match="cover"):
+        kc.clahe8_lookup(x, tab, torch.zeros((2, 8), device=cuda),
+                         torch.zeros((1, 16), device=cuda), 8, 8)

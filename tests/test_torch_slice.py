@@ -3,11 +3,15 @@ the flagship step ``boxblur(r=13) -> limiter(tv_range=True)`` that
 ``__graft_entry__.py`` runs, the bench's 5-pass row, the BoxBlur settings
 of ``benchmarks/tpu_parity.py`` (``boxblur_ct``, ``boxblur_x3``), and the
 bench's two Deband rows (``deband(sample_mode=1)`` and ``deband()``,
-``bench.py:113-116``).  The JAX clip's state crosses over through
-``from_reference``.
+``bench.py:113-116``), and the CLAHE and EEDI3 rows (``clahe(c)`` on GRAY8
+and ``eedi3(c, field=1, dh=True)`` on GRAYS, ``bench.py:118-125``).  The JAX
+clip's state crosses over through ``from_reference``.
 
-Tolerance: every plane here is integer, so bit-exact.  Size: 4 frames of
-128x192 YUV420P16 (the bench runs 64 frames of 1920x1080).
+Tolerance: every integer plane bit-exact; EEDI3's f32 planes within
+max |d| < 2e-6 (the ROADMAP's EEDI3 criterion).  Size: 4 frames of 128x192
+YUV420P16 (the bench runs 64 frames of 1920x1080); CLAHE 4 frames of
+108x192 GRAY8 (bench: 64 of 1080x1920), EEDI3 2 frames of 27x96 GRAYS
+(bench: 8 of 540x1920).
 """
 
 import numpy as np
@@ -48,3 +52,25 @@ def test_slice_matches_jax(step):
     want = STEPS[step](vz, cj)
     assert got.format == ct.format and got.num_frames == N
     assert_planes_match(got.planes, want.planes)
+
+
+BENCH_ROWS = {
+    "clahe_8bit": ("GRAY8", 4, 108, 192, lambda m, c: m.clahe(c)),
+    "eedi3_dh": ("GRAYS", 2, 27, 96, lambda m, c: m.eedi3(c, field=1, dh=True)),
+}
+
+
+@pytest.mark.parametrize("row", sorted(BENCH_ROWS))
+def test_slice_bench_rows_match_jax(row):
+    fmt, n, h, w, fn = BENCH_ROWS[row]
+    cj = vz.Clip.from_planes(make_planes(fmt, np.random.default_rng(3), n, h, w),
+                             vz.get_format(fmt))
+    ct = vt.from_reference([np.asarray(p) for p in cj.planes], fmt, device="cpu")
+    got, want = fn(vt, ct), fn(vz, cj)
+    assert (got.num_frames, got.height, got.width) == (want.num_frames, want.height,
+                                                       want.width)
+    if fmt == "GRAYS":
+        for g, x in zip(got.planes, want.planes):
+            assert g.shape == x.shape and np.abs(g.numpy() - np.asarray(x)).max() < 2e-6
+    else:
+        assert_planes_match(got.planes, want.planes)

@@ -2,9 +2,10 @@
 
 The same surface as ``vszip_tpu`` for the ported slice: a ``Clip`` of
 ``(N, H, W)`` plane tensors, the format and parameter layer, and the filters
-BoxBlur, Deband and Limiter with the same arguments, validation messages
-and results.  Integer BoxBlur and Deband run hand-written CUDA kernels
-(``csrc/``) on CUDA tensors and their plain PyTorch versions on CPU tensors.
+BoxBlur, Deband, Limiter, CLAHE and EEDI3/EEDI3H with the same arguments,
+validation messages and results.  Integer BoxBlur, Deband, 8-bit CLAHE and
+EEDI3 run hand-written CUDA kernels (``csrc/``) on CUDA tensors and their
+plain PyTorch versions on CPU tensors.
 Clips are made on the card unless the caller asks for another device.  The
 package imports torch and never JAX.
 """
@@ -18,7 +19,7 @@ from .core.format import (
     get_format,
 )
 from .core.params import VSZipError
-from .ops import boxblur, deband, limiter
+from .ops import boxblur, clahe, deband, eedi3, eedi3h, limiter
 
 __all__ = [
     "Clip",
@@ -32,7 +33,10 @@ __all__ = [
     "get_format",
     "VSZipError",
     "boxblur",
+    "clahe",
     "deband",
+    "eedi3",
+    "eedi3h",
     "limiter",
 ]
 

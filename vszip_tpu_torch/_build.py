@@ -8,6 +8,8 @@ library        source                             compiler
 =============  =================================  =====================
 ``boxblur``    ``csrc/boxblur.cu``                nvcc (``sm_90a``)
 ``deband``     ``csrc/deband.cu``                 nvcc (``sm_90a``)
+``clahe``      ``csrc/clahe.cu``                  nvcc (``sm_90a``)
+``eedi3``      ``csrc/eedi3.cu``                  nvcc (``sm_90a``)
 ``deband_rng`` ``runtime/native/deband_rng.cpp``  g++
 ``dither``     ``runtime/native/dither.cpp``      g++
 =============  =================================  =====================
@@ -39,11 +41,14 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 GXX_FLAGS = ("-O2", "-fPIC", "-shared")
 
 # name -> (source relative to the package, extra flags).  deband.cu's mode 6
-# runs the VCL pow polynomial, whose f32 order is pinned: -fmad=false stops
-# nvcc contracting a*b+c into FMA, so it rounds as the plain torch version.
+# (the VCL pow polynomial), CLAHE's blend and EEDI3's cost, DP and
+# interpolation pin their f32 order: -fmad=false stops nvcc contracting
+# a*b+c into FMA, so they round as the plain torch versions.
 LIBRARIES = {
     "boxblur": ("csrc/boxblur.cu", ()),
     "deband": ("csrc/deband.cu", ("-fmad=false",)),
+    "clahe": ("csrc/clahe.cu", ("-fmad=false",)),
+    "eedi3": ("csrc/eedi3.cu", ("-fmad=false",)),
     "deband_rng": ("runtime/native/deband_rng.cpp", ()),
     "dither": ("runtime/native/dither.cpp", ()),
 }

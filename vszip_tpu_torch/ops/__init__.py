@@ -1,5 +1,7 @@
 from .boxblur import boxblur
+from .clahe import clahe
 from .deband import deband
+from .eedi3 import eedi3, eedi3h
 from .limiter import limiter
 
-__all__ = ["boxblur", "deband", "limiter"]
+__all__ = ["boxblur", "clahe", "deband", "eedi3", "eedi3h", "limiter"]
