@@ -1,15 +1,24 @@
 """The CUDA kernels on the card: each against its plain PyTorch version, the
-slice (BoxBlur, Limiter, Deband, CLAHE, EEDI3) on the card against the
-port's CPU path, the launch counters, and the wrappers' input checks.  Every test here needs an NVIDIA GPU and skips
+slice (BoxBlur, Limiter, Deband, CLAHE, EEDI3, XPSNR, SSIMULACRA2) on the
+card against the port's CPU path, the launch counters, and the wrappers'
+input checks.  Every test here needs an NVIDIA GPU and skips
 without one.  This file imports no JAX (the card's machine has none), so it
 runs there on its own, without tests/conftest.py:
 
     python -m pytest --noconftest -m cuda tests/test_torch_card.py
 
 Tolerance: bit-exact everywhere, floats included (Deband m6's soft blend,
-CLAHE's blend, EEDI3's costs, DP and interpolation): those kernels build
-without FMA contraction and round each product and sum as the plain torch
-ops do, so EEDI3's outputs and direction paths are equal, not close.
+CLAHE's blend, EEDI3's costs, DP and interpolation, SSIMULACRA2's band
+partials): those kernels build without FMA contraction and round each
+product and sum as the plain torch ops do, so EEDI3's outputs and direction
+paths are equal, not close.  XPSNR's block sums are exact integers.  Where
+the card's result is compared with the CPU's through a torch reduction in
+f64 (B13's fold, XPSNR's weighted sums and log10), rtol 1e-12 on the sums
+and XPSNR's props; the SSIMULACRA2 score, ``100 - 10 s^0.63`` of those
+sums, within rtol 1e-9 on a linear input (the fold's f64 rounding grows
+through the power; measured 3.6e-12 on the H100) and 1e-6 on a non-linear
+one (torch's f32 ``pow`` in the sRGB EOTF may round its last bit
+differently on the two devices).
 """
 
 import numpy as np
@@ -21,6 +30,8 @@ from vszip_tpu_torch.kernels import boxblur as kb
 from vszip_tpu_torch.kernels import clahe as kc
 from vszip_tpu_torch.kernels import deband as kd
 from vszip_tpu_torch.kernels import eedi3 as ke
+from vszip_tpu_torch.kernels import ssim as ks
+from vszip_tpu_torch.kernels import xpsnr as kx
 from vszip_tpu_torch.ops.clahe import _cells_8bit
 from vszip_tpu_torch.ops.eedi3 import _pad_rows
 
@@ -355,3 +366,137 @@ def test_eedi3_wrappers_reject_what_kernels_do_not_take(cuda):
     with pytest.raises(ValueError, match="cover"):
         kc.clahe8_lookup(x, tab, torch.zeros((2, 8), device=cuda),
                          torch.zeros((1, 16), device=cuda), 8, 8)
+
+
+# ---------------------------------------------------------------------------
+# XPSNR (B11, B12) and SSIMULACRA2 (B13)
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("dtype,peak", [(torch.uint16, 1024), (torch.uint8, 256)], ids=str)
+@pytest.mark.parametrize("shape", [(3, 150, 256), (4, 1080, 1920), (2, 70, 131), (1, 3, 5)],
+                         ids=str)
+def test_xpsnr_kernels_match_plain(cuda, shape, dtype, peak):
+    g = torch.Generator(device=cuda).manual_seed(shape[1])
+    org, rec = (torch.randint(0, peak, shape, generator=g, device=cuda, dtype=torch.int32)
+                .to(dtype) for _ in range(2))
+    for order, temporal in ((1, True), (2, True), (1, False)):
+        for k, r in zip(kx.luma_stats(org, rec, order, temporal),
+                        kx.luma_stats_ref(org, rec, order, temporal)):
+            assert k.dtype == torch.float64 and torch.equal(k, r)
+    for by, bx in ((32, 32), (64, 32), (8, 16), (3, 7)):
+        assert torch.equal(kx.chroma_sse(org, rec, by, bx), kx.chroma_sse_ref(org, rec, by, bx))
+
+
+@pytest.mark.parametrize("shape", [(2, 130, 131), (2, 1080, 1920), (1, 100, 2600), (1, 16, 16),
+                                   (3, 67, 241)], ids=str)
+def test_ssim_kernel_matches_plain(cuda, shape):
+    g = torch.Generator(device=cuda).manual_seed(sum(shape))
+    im1, im2 = (torch.rand(shape, generator=g, device=cuda) for _ in range(2))
+    for ns, ne in ((True, True), (True, False), (False, True)):
+        part = ks.ssim_partials(im1, im2, ns, ne)
+        assert torch.equal(part, ks.ssim_partials_ref(im1, im2, ns, ne))
+        cpu = ks.ssim_partials_ref(im1.cpu(), im2.cpu(), ns, ne)
+        assert torch.equal(part.cpu(), cpu)
+        torch.testing.assert_close(ks.ssim_sums(im1, im2, ns, ne).cpu(), ks.fold(cpu),
+                                   rtol=1e-12, atol=0)
+
+
+def _metric_clip(fmt, n, h, w, seed, device):
+    rng = np.random.default_rng(seed)
+    f = vt.get_format(fmt)
+    if f.sample_type is vt.SampleType.FLOAT:
+        a = [rng.random((n,) + f.plane_dims(w, h, p)[::-1], dtype=np.float32) for p in range(3)]
+        b = [np.clip(p + np.float32(0.01), 0, 1).astype(np.float32) for p in a]
+    else:
+        peak = (1 << f.bits_per_sample) - 1
+        a = [rng.integers(0, peak + 1, (n,) + f.plane_dims(w, h, p)[::-1]).astype(f.storage_dtype)
+             for p in range(3)]
+        b = [np.clip(p.astype(np.int64) + rng.integers(-8, 8, p.shape), 0, peak)
+             .astype(f.storage_dtype) for p in a]
+    return (vt.Clip.from_planes(a, f, device=device), vt.Clip.from_planes(b, f, device=device))
+
+
+@pytest.mark.parametrize("fmt,h,w,fps,launches", [
+    ("YUV420P10", 1080, 1920, 24, (1, 2)),
+    ("YUV420P8", 1080, 1920, 60, (1, 2)),
+    ("YUV422P10", 1080, 1920, 24, (1, 2)),
+    ("YUV420P10", 1440, 2560, 24, (0, 0)),
+    ("YUV420P8", 480, 640, 24, (0, 0)),
+    ("YUV420P10", 32, 40, 24, (0, 0)),
+], ids=str)
+def test_xpsnr_on_card_matches_cpu(cuda, fmt, h, w, fps, launches):
+    c1, c2 = _metric_clip(fmt, 3, h, w, 1, "cpu")
+    kx.reset_launches()
+    got = vt.xpsnr(c1.to(cuda), c2.to(cuda), fps=fps)
+    assert (kx.LAUNCHES["luma_stats"], kx.LAUNCHES["chroma_sse"]) == launches
+    want = vt.xpsnr(c1, c2, fps=fps)
+    assert got.props["_XPSNR_WSSE"].is_cuda
+    assert torch.equal(got.props["_XPSNR_WSSE"].cpu(), want.props["_XPSNR_WSSE"])
+    for k in ("XPSNR_Y", "XPSNR_U", "XPSNR_V", "XPSNR_AVG"):
+        torch.testing.assert_close(got.props[k].cpu(), want.props[k], rtol=1e-12, atol=0)
+
+
+@pytest.mark.parametrize("layout", ["crop", "transposed"])
+def test_xpsnr_on_card_takes_strided_planes(cuda, layout):
+    # a caller's views reach the op as they are: a crop of wider planes, or
+    # planes stored transposed; the op hands B11/B12 contiguous copies
+    c1, c2 = _metric_clip("YUV420P10", 3, 1080, 1920, 4, "cpu")
+
+    def strided(c):
+        planes = []
+        for p in c.planes:
+            if layout == "crop":
+                wide = torch.zeros(p.shape[:2] + (p.shape[2] + 8,), dtype=p.dtype, device=cuda)
+                wide[..., 4:-4] = p.to(cuda)
+                planes.append(wide[..., 4:-4])
+            else:
+                planes.append(p.transpose(1, 2).contiguous().to(cuda).transpose(1, 2))
+        assert not any(q.is_contiguous() for q in planes)
+        return vt.Clip.from_planes(planes, c.format, device=cuda)
+
+    kx.reset_launches()
+    got = vt.xpsnr(strided(c1), strided(c2), fps=24)
+    assert (kx.LAUNCHES["luma_stats"], kx.LAUNCHES["chroma_sse"]) == (1, 2)
+    want = vt.xpsnr(c1, c2, fps=24)
+    assert torch.equal(got.props["_XPSNR_WSSE"].cpu(), want.props["_XPSNR_WSSE"])
+    for k in ("XPSNR_Y", "XPSNR_U", "XPSNR_V", "XPSNR_AVG"):
+        torch.testing.assert_close(got.props[k].cpu(), want.props[k], rtol=1e-12, atol=0)
+
+
+@pytest.mark.parametrize("fmt,h,w,props,launches,rtol", [
+    ("RGBS", 1080, 1920, {}, 11, 1e-6),
+    ("RGBS", 200, 260, {"_Transfer": 8}, 8, 1e-9),
+    ("YUV420P16", 120, 176, {"_Matrix": 1}, 5, 1e-6),
+], ids=str)
+def test_ssimulacra2_on_card_matches_cpu(cuda, fmt, h, w, props, launches, rtol):
+    c1, c2 = _metric_clip(fmt, 1, h, w, 2, "cpu")
+    c1, c2 = c1.with_props(**props), c2.with_props(**props)
+    ks.reset_launches()
+    got = vt.ssimulacra2(c1.to(cuda), c2.to(cuda)).props["SSIMULACRA2"]
+    assert ks.LAUNCHES["ssim_sums"] == launches
+    want = vt.ssimulacra2(c1, c2).props["SSIMULACRA2"]
+    assert got.is_cuda
+    torch.testing.assert_close(got.cpu(), want, rtol=rtol, atol=0)
+
+
+def test_identical_ssimulacra2_on_card_is_100(cuda):
+    c1, _ = _metric_clip("RGBS", 2, 1080, 1920, 3, cuda)
+    ks.reset_launches()
+    out = vt.ssimulacra2(c1, c1).props["SSIMULACRA2"]
+    assert ks.LAUNCHES["ssim_sums"] == 11
+    assert out.cpu().tolist() == [100.0, 100.0]
+
+
+def test_metric_wrappers_reject_what_kernels_do_not_take(cuda):
+    x = _rand((2, 64, 64), torch.uint16, cuda)
+    with pytest.raises(ValueError, match="uint8/uint16"):
+        kx.luma_stats(x.to(torch.int32), x.to(torch.int32), 1, True)
+    with pytest.raises(ValueError, match="planes differ"):
+        kx.chroma_sse(x, x[:1], 32, 32)
+    with pytest.raises(ValueError, match="order 1 or 2"):
+        kx.luma_stats(x, x, 3, True)
+    f = torch.rand((1, 32, 32), device=cuda)
+    with pytest.raises(ValueError, match="float32"):
+        ks.ssim_partials(f, f.double(), True, True)
+    with pytest.raises(ValueError, match="contiguous"):
+        ks.ssim_partials(f.transpose(1, 2), f, True, True)

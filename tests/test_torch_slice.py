@@ -3,15 +3,20 @@ the flagship step ``boxblur(r=13) -> limiter(tv_range=True)`` that
 ``__graft_entry__.py`` runs, the bench's 5-pass row, the BoxBlur settings
 of ``benchmarks/tpu_parity.py`` (``boxblur_ct``, ``boxblur_x3``), and the
 bench's two Deband rows (``deband(sample_mode=1)`` and ``deband()``,
-``bench.py:113-116``), and the CLAHE and EEDI3 rows (``clahe(c)`` on GRAY8
-and ``eedi3(c, field=1, dh=True)`` on GRAYS, ``bench.py:118-125``).  The JAX
-clip's state crosses over through ``from_reference``.
+``bench.py:113-116``), the CLAHE and EEDI3 rows (``clahe(c)`` on GRAY8
+and ``eedi3(c, field=1, dh=True)`` on GRAYS, ``bench.py:118-125``) and the
+metric rows (``xpsnr(c1, c2, fps=24)`` and ``ssimulacra2(r1, r2)``, built
+as ``bench.py:151-168`` builds them).  The JAX clip's state crosses over
+through ``from_reference``.
 
 Tolerance: every integer plane bit-exact; EEDI3's f32 planes within
-max |d| < 2e-6 (the ROADMAP's EEDI3 criterion).  Size: 4 frames of 128x192
+max |d| < 2e-6 (the ROADMAP's EEDI3 criterion); XPSNR's ``_XPSNR_WSSE``
+equal and its props within rtol 1e-12; the SSIMULACRA2 score within rtol
+1e-3 / atol 1e-6 (the metric's criterion).  Size: 4 frames of 128x192
 YUV420P16 (the bench runs 64 frames of 1920x1080); CLAHE 4 frames of
 108x192 GRAY8 (bench: 64 of 1080x1920), EEDI3 2 frames of 27x96 GRAYS
-(bench: 8 of 540x1920).
+(bench: 8 of 540x1920), XPSNR 4 frames of 128x192 YUV420P10 (bench: 32 of
+1080p), SSIMULACRA2 2 frames of 128x192 RGBS (bench: 8 of 1080p).
 """
 
 import numpy as np
@@ -74,3 +79,41 @@ def test_slice_bench_rows_match_jax(row):
             assert g.shape == x.shape and np.abs(g.numpy() - np.asarray(x)).max() < 2e-6
     else:
         assert_planes_match(got.planes, want.planes)
+
+
+def _metric_clips(rng):
+    """The bench's metric inputs (bench.py:151-168) at a reduced size, as
+    JAX clips: c1/c2 YUV420P10 (c2 = c1 + integers(-8, 8), clipped), r1/r2
+    RGBS (r2 = clip(r1 + 0.01, 0, 1))."""
+    c1 = vz.Clip.from_planes(make_planes("YUV420P10", rng, N, H, W), vz.get_format("YUV420P10"))
+    c2 = vz.Clip.from_planes(
+        tuple(np.clip(np.asarray(a).astype(np.int32) + rng.integers(-8, 8, a.shape), 0, 1023)
+              .astype(np.uint16) for a in c1.planes), vz.get_format("YUV420P10"))
+    r1 = vz.Clip.from_planes(tuple(rng.random((2, H, W), dtype=np.float32) for _ in range(3)),
+                             vz.get_format("RGBS"))
+    r2 = vz.Clip.from_planes(tuple(np.clip(np.asarray(p) + 0.01, 0, 1) for p in r1.planes),
+                             vz.get_format("RGBS"))
+    return c1, c2, r1, r2
+
+
+def _port(c):
+    return vt.from_reference([np.asarray(p) for p in c.planes], c.format.name,
+                             {k: np.asarray(v) for k, v in c.props.items()}, device="cpu")
+
+
+@pytest.mark.parametrize("row", ["xpsnr", "ssimulacra2"])
+def test_slice_metric_rows_match_jax(row):
+    c1, c2, r1, r2 = _metric_clips(np.random.default_rng(11))
+    if row == "xpsnr":
+        want = vz.xpsnr(c1, c2, fps=24)
+        got = vt.xpsnr(_port(c1), _port(c2), fps=24)
+        np.testing.assert_array_equal(got.props["_XPSNR_WSSE"].numpy(),
+                                      np.asarray(want.props["_XPSNR_WSSE"]))
+        for k in ("XPSNR_Y", "XPSNR_U", "XPSNR_V", "XPSNR_AVG"):
+            np.testing.assert_allclose(got.props[k].numpy(), np.asarray(want.props[k]),
+                                       rtol=1e-12, atol=0)
+    else:
+        want = np.asarray(vz.ssimulacra2(r1, r2).props["SSIMULACRA2"])
+        got = vt.ssimulacra2(_port(r1), _port(r2)).props["SSIMULACRA2"].numpy()
+        np.testing.assert_allclose(got, want, rtol=1e-3, atol=1e-6,
+                                   err_msg=f"max |d| {np.abs(got - want).max():.3e}")

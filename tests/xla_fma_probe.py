@@ -1,16 +1,20 @@
-"""How far XLA:CPU's jit departs from strict f32 on EEDI3's arithmetic.
+"""How far XLA:CPU's jit departs from strict f32 on EEDI3's and
+SSIMULACRA2's arithmetic.
 
 Run from the checkout root:
 
-    JAX_PLATFORMS=cpu python tests/xla_fma_probe.py
+    PYTHONPATH=. JAX_PLATFORMS=cpu python tests/xla_fma_probe.py
 
 Prints, for 2^20 random cases, how often the jitted cost expression
 ``alpha*s + beta_u + omab*v`` and the 4-tap ``0.5625*(a+b) - 0.0625*(c+d)``
 differ from separate f32 rounding, and whether the cost equals
 ``fma(omab, v, fma(alpha, s, beta_u))``; then how many entries of
 ``vszip_tpu.ops.eedi3._costs_nonhp`` jitted differ from the same function
-under ``jax.disable_jit()`` (B=2, L=9, W=120, mdis=6).  Not a test: the
-numbers depend on the XLA version.
+under ``jax.disable_jit()`` (B=2, L=9, W=120, mdis=6); then the same for
+``vszip_tpu.ops.ssimulacra2._blur_1d`` (2x40x50 f32, axis 2), and which
+association the jitted ``_downscale2`` computes: ``((a+b)+c)+d`` or the
+``(a+b)+(c+d)`` of its docstring.  Not a test: the numbers depend on the
+XLA version.
 """
 
 import importlib
@@ -54,6 +58,20 @@ def main():
         eager = np.stack([np.asarray(c) for c in E._costs_nonhp(*padded, *args)])
     print(f"_costs_nonhp: jitted != disable_jit in {int((jitted != eager).sum())} of "
           f"{jitted.size} entries")
+
+    S = importlib.import_module("vszip_tpu.ops.ssimulacra2")
+    x = jnp.asarray(rng.random((2, 40, 50), dtype=f32))
+    jitted = np.asarray(jax.jit(S._blur_1d, static_argnums=1)(x, 2))
+    with jax.disable_jit():
+        eager = np.asarray(S._blur_1d(x, 2))
+    print(f"ssimulacra2 _blur_1d: jitted != disable_jit in {int((jitted != eager).sum())} of "
+          f"{jitted.size} outputs")
+    down = np.asarray(jax.jit(S._downscale2)(x))
+    xs = np.asarray(x)
+    a, b, c, d = xs[:, 0::2, 0::2], xs[:, 0::2, 1::2], xs[:, 1::2, 0::2], xs[:, 1::2, 1::2]
+    seq, pair = (((a + b) + c) + d) * f32(0.25), ((a + b) + (c + d)) * f32(0.25)
+    print(f"ssimulacra2 _downscale2 jitted: == ((a+b)+c)+d in {np.mean(down == seq):.2%}, "
+          f"== (a+b)+(c+d) in {np.mean(down == pair):.2%} of {down.size} outputs")
 
 
 if __name__ == "__main__":

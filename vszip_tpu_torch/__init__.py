@@ -2,10 +2,13 @@
 
 The same surface as ``vszip_tpu`` for the ported slice: a ``Clip`` of
 ``(N, H, W)`` plane tensors, the format and parameter layer, and the filters
-BoxBlur, Deband, Limiter, CLAHE and EEDI3/EEDI3H with the same arguments,
-validation messages and results.  Integer BoxBlur, Deband, 8-bit CLAHE and
-EEDI3 run hand-written CUDA kernels (``csrc/``) on CUDA tensors and their
-plain PyTorch versions on CPU tensors.
+BoxBlur, Deband, Limiter, CLAHE, EEDI3/EEDI3H and the metrics XPSNR and
+SSIMULACRA2 with the same arguments, validation messages and results, and
+the format conversions ``bit_depth``, ``resize``, ``to_rgbs`` and
+``srgb_to_linear``.  Integer BoxBlur, Deband, 8-bit CLAHE, EEDI3, XPSNR's
+block statistics and SSIMULACRA2's per-scale sums run hand-written CUDA
+kernels (``csrc/``) on CUDA tensors and their plain PyTorch versions on CPU
+tensors.
 Clips are made on the card unless the caller asks for another device.  The
 package imports torch and never JAX.
 """
@@ -19,7 +22,8 @@ from .core.format import (
     get_format,
 )
 from .core.params import VSZipError
-from .ops import boxblur, clahe, deband, eedi3, eedi3h, limiter
+from .core.resample import bit_depth, resize, srgb_to_linear, to_rgbs
+from .ops import boxblur, clahe, deband, eedi3, eedi3h, limiter, ssimulacra2, xpsnr
 
 __all__ = [
     "Clip",
@@ -32,12 +36,18 @@ __all__ = [
     "VideoFormat",
     "get_format",
     "VSZipError",
+    "bit_depth",
+    "resize",
+    "srgb_to_linear",
+    "to_rgbs",
     "boxblur",
     "clahe",
     "deband",
     "eedi3",
     "eedi3h",
     "limiter",
+    "ssimulacra2",
+    "xpsnr",
 ]
 
 __version__ = "0.1.0"

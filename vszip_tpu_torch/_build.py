@@ -10,6 +10,8 @@ library        source                             compiler
 ``deband``     ``csrc/deband.cu``                 nvcc (``sm_90a``)
 ``clahe``      ``csrc/clahe.cu``                  nvcc (``sm_90a``)
 ``eedi3``      ``csrc/eedi3.cu``                  nvcc (``sm_90a``)
+``xpsnr``      ``csrc/xpsnr.cu``                  nvcc (``sm_90a``)
+``ssim``       ``csrc/ssim.cu``                   nvcc (``sm_90a``)
 ``deband_rng`` ``runtime/native/deband_rng.cpp``  g++
 ``dither``     ``runtime/native/dither.cpp``      g++
 =============  =================================  =====================
@@ -41,14 +43,17 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 GXX_FLAGS = ("-O2", "-fPIC", "-shared")
 
 # name -> (source relative to the package, extra flags).  deband.cu's mode 6
-# (the VCL pow polynomial), CLAHE's blend and EEDI3's cost, DP and
-# interpolation pin their f32 order: -fmad=false stops nvcc contracting
-# a*b+c into FMA, so they round as the plain torch versions.
+# (the VCL pow polynomial), CLAHE's blend, EEDI3's cost, DP and
+# interpolation and SSIMULACRA2's blurs and maps pin their f32 order:
+# -fmad=false stops nvcc contracting a*b+c into FMA, so they round as the
+# plain torch versions.
 LIBRARIES = {
     "boxblur": ("csrc/boxblur.cu", ()),
     "deband": ("csrc/deband.cu", ("-fmad=false",)),
     "clahe": ("csrc/clahe.cu", ("-fmad=false",)),
     "eedi3": ("csrc/eedi3.cu", ("-fmad=false",)),
+    "xpsnr": ("csrc/xpsnr.cu", ()),
+    "ssim": ("csrc/ssim.cu", ("-fmad=false",)),
     "deband_rng": ("runtime/native/deband_rng.cpp", ()),
     "dither": ("runtime/native/dither.cpp", ()),
 }
