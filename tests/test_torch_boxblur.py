@@ -69,3 +69,14 @@ def test_boxblur_errors_match(fmt, kwargs):
     msg = same_error(lambda: vz.boxblur(cj, **kwargs), lambda: vt.boxblur(ct, **kwargs),
                      ValueError)
     assert msg.startswith("BoxBlur: ")
+
+
+@pytest.mark.parametrize("args", [{"hradius": 13, "vradius": 1},
+                                  {"hradius": 13, "hpasses": 5, "vradius": 1},
+                                  {"hradius": 1, "vradius": 1}], ids=str)
+@pytest.mark.parametrize("fmt", ["GRAY8", "GRAY16"])
+def test_rows_wider_than_shared_memory_match_jax(fmt, args):
+    # 65,536 columns: on the card these rows take h_fixed's global scratch
+    rng = np.random.default_rng(len(str(args)))
+    cj, ct = both_clips(fmt, make_planes(fmt, rng, 1, 4, 65536))
+    assert_planes_match(vt.boxblur(ct, **args).planes, vz.boxblur(cj, **args).planes)

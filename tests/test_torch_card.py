@@ -1,6 +1,6 @@
 """The CUDA kernels on the card: each against its plain PyTorch version, the
-slice (BoxBlur, Limiter, Deband, CLAHE, EEDI3, XPSNR, SSIMULACRA2) on the
-card against the port's CPU path, the launch counters, and the wrappers'
+slice (BoxBlur, Limiter, Deband, CLAHE, EEDI3, XPSNR, SSIMULACRA2, Compress,
+Checkmate, CombMask, CombMaskMT) on the card against the port's CPU path, the launch counters, and the wrappers'
 input checks.  Every test here needs an NVIDIA GPU and skips
 without one.  This file imports no JAX (the card's machine has none), so it
 runs there on its own, without tests/conftest.py:
@@ -21,12 +21,17 @@ one (torch's f32 ``pow`` in the sRGB EOTF may round its last bit
 differently on the two devices).
 """
 
+import importlib
+
 import numpy as np
 import pytest
 import torch
 
 import vszip_tpu_torch as vt
 from vszip_tpu_torch.kernels import boxblur as kb
+from vszip_tpu_torch.kernels import checkmate as kk
+from vszip_tpu_torch.kernels import comb_mask as km
+from vszip_tpu_torch.kernels import compress as kz
 from vszip_tpu_torch.kernels import clahe as kc
 from vszip_tpu_torch.kernels import deband as kd
 from vszip_tpu_torch.kernels import eedi3 as ke
@@ -500,3 +505,123 @@ def test_metric_wrappers_reject_what_kernels_do_not_take(cuda):
         ks.ssim_partials(f, f.double(), True, True)
     with pytest.raises(ValueError, match="contiguous"):
         ks.ssim_partials(f.transpose(1, 2), f, True, True)
+
+
+@pytest.mark.parametrize("dtype", [torch.uint8, torch.uint16], ids=str)
+def test_boxblur_rows_wider_than_shared_memory(cuda, dtype):
+    # 65,536 columns: one row (with its mirror pad) outgrows a block's shared
+    # memory, so h_fixed keeps it in a global scratch buffer
+    x = _rand((1, 4, 65536), dtype, cuda, seed=5)
+    fmt = vt.get_format("GRAY8" if dtype == torch.uint8 else "GRAY16")
+    c = vt.Clip.from_planes([x], fmt, device=cuda)
+    for args, launches in (({"hradius": 13, "vradius": 1}, {"rt_blur_h": 1, "rt_blur_v": 1}),
+                           ({"hradius": 13, "hpasses": 5, "vradius": 1},
+                            {"rt_blur_h": 1, "rt_blur_v": 1}),
+                           ({"hradius": 1, "vradius": 1}, {"ct_blur_int": 1})):
+        kb.reset_launches()
+        got = vt.boxblur(c, **args).planes[0]
+        assert {k: n for k, n in kb.LAUNCHES.items() if n} == launches
+        assert _same(got.cpu(), vt.boxblur(c.to("cpu"), **args).planes[0])
+    for p in (1, 5):
+        assert _same(kb.rt_blur_h(x, 13, p), kb.h_fixed_ref(x, 13, p))
+
+
+def _smooth_u8(shape, device, seed):
+    """A smooth moving pattern, noise of +-3 and a band of combed rows."""
+    n, h, w = shape
+    g = torch.Generator(device=device).manual_seed(seed)
+    y = torch.arange(h, device=device).view(1, h, 1).float()
+    x = torch.arange(w, device=device).view(1, 1, w).float()
+    f = torch.arange(n, device=device).view(n, 1, 1).float()
+    v = 128 + 60 * torch.sin(x / 37 + f / 5) * torch.cos(y / 23)
+    v = v + torch.randint(-3, 4, shape, generator=g, device=device)
+    v[:, h // 3:2 * h // 3:2] += 40
+    return v.clamp(0, 255).to(torch.uint8)
+
+
+_compress_op = importlib.import_module("vszip_tpu_torch.ops.compress")
+_COMPRESS = [("mpeg2", 8, 0, 50), ("mpeg2", 1, 0, 50), ("mpeg2", 2, 3, 50), ("mpeg2", 31, 1, 50),
+             ("jpeg", 8, 0, 1), ("jpeg", 8, 0, 50), ("jpeg", 8, 0, 80), ("jpeg", 8, 0, 95),
+             ("jpeg", 8, 0, 100)]
+
+
+@pytest.mark.parametrize("shape", [(2, 37, 53), (1, 1, 1), (3, 9, 300), (2, 540, 960)], ids=str)
+def test_compress_kernel_matches_plain(cuda, shape):
+    regimes = set()
+    for x in (_rand(shape, torch.uint8, cuda, seed=2), _smooth_u8(shape, cuda, 2)):
+        for codec, qscale, dc_prec, quality in _COMPRESS:
+            for chroma in (False, True):
+                qa, qb, wide, _ = _compress_op._quant_setup(codec, qscale, dc_prec, quality,
+                                                            chroma)
+                a = (x, qa, qb, codec == "jpeg", dc_prec, wide)
+                assert _same(kz.compress_plane(*a), kz.compress_plane_ref(*a))
+                regimes.add(wide)
+    assert regimes == {False, True}
+
+
+@pytest.mark.parametrize("shape", [(3, 37, 53), (1, 5, 3), (2, 5, 300), (5, 540, 960)], ids=str)
+def test_checkmate_kernel_matches_plain(cuda, shape):
+    for x in (_rand(shape, torch.uint8, cuda, seed=3), _smooth_u8(shape, cuda, 3)):
+        for thr, tmax, tthr2 in ((12, 12, 0), (12, 12, 10), (0, 1, 0), (255, 255, 3),
+                                 (20, 30, 255)):
+            assert _same(kk.checkmate(x, thr, tmax, tthr2), kk.checkmate_ref(x, thr, tmax, tthr2))
+
+
+@pytest.mark.parametrize("shape", [(3, 37, 53), (2, 3, 1), (2, 3, 2), (1, 4, 3), (2, 9, 300),
+                                   (3, 540, 960)], ids=str)
+def test_comb_mask_kernel_matches_plain(cuda, shape):
+    for x in (_rand(shape, torch.uint8, cuda, seed=4), _smooth_u8(shape, cuda, 4)):
+        for cthresh, mthresh, metric_1, expand in ((6, 9, False, True), (6, 9, True, True),
+                                                   (6, 0, False, True), (6, 9, False, False),
+                                                   (65025, 9, True, True), (0, 0, True, False),
+                                                   (255, 255, False, True)):
+            assert _same(km.comb_mask(x, cthresh, mthresh, metric_1, expand),
+                         km.comb_mask_ref(x, cthresh, mthresh, metric_1, expand))
+
+
+@pytest.mark.parametrize("op,fmt,args,launches", [
+    ("compress", "YUV420P8", {}, {"compress_plane": 3}),
+    ("compress", "YUV420P8", {"codec": 1, "quality": 95}, {"compress_plane": 3}),
+    ("compress", "YUV420P8", {"qscale": 2, "dc_prec": 3}, {"compress_plane": 3}),
+    ("compress", "YUV444P8", {"chroma": False}, {"compress_plane": 1}),
+    ("checkmate", "YUV420P8", {}, {"checkmate": 3}),
+    ("checkmate", "GRAY8", {"tthr2": 10}, {"checkmate": 1}),
+    ("comb_mask", "YUV420P8", {}, {"comb_mask": 3}),
+    ("comb_mask", "GRAY8", {"metric": True, "cthresh": 65025}, {"comb_mask": 1}),
+    ("comb_mask", "YUV444P8", {"mthresh": 0, "expand": False}, {"comb_mask": 3}),
+    ("comb_mask_mt", "YUV420P8", {"thY1": 10, "thY2": 200}, {}),
+], ids=str)
+@pytest.mark.parametrize("layout", ["contiguous", "crop"])
+def test_integer_filters_on_card_match_cpu(cuda, op, fmt, args, launches, layout):
+    f = vt.get_format(fmt)
+    h, w = 38, 54
+    planes = []
+    for p in range(f.num_planes):
+        pw, ph = f.plane_dims(w, h, p)
+        # a crop of a wider plane is not contiguous; the ops take it as it is
+        big = _smooth_u8((4, ph, pw + 6), cuda, p)
+        planes.append(big[..., 3:-3] if layout == "crop" else big[..., 3:-3].contiguous())
+    c = vt.Clip.from_planes(planes, f, device=cuda)
+    for m in (kz, kk, km):
+        m.reset_launches()
+    got = getattr(vt, op)(c, **args)
+    counts = {k: n for m in (kz, kk, km) for k, n in m.LAUNCHES.items() if n}
+    assert counts == launches
+    want = getattr(vt, op)(c.to("cpu"), **args)
+    for g, w_ in zip(got.planes, want.planes):
+        assert g.is_cuda and _same(g.cpu(), w_)
+
+
+def test_integer_filter_wrappers_reject_what_kernels_do_not_take(cuda):
+    x = _rand((2, 16, 16), torch.uint8, cuda)
+    qa, qb, _, _ = _compress_op._quant_setup("mpeg2", 8, 0, 50, False)
+    with pytest.raises(ValueError, match="contiguous"):
+        kz.compress_plane(x.transpose(1, 2), qa, qb, False, 0, False)
+    with pytest.raises(ValueError, match="64"):
+        kz.compress_plane(x, qa[:10], qb, False, 0, False)
+    with pytest.raises(ValueError, match="uint8"):
+        kk.checkmate(x.to(torch.int32), 12, 12, 0)
+    with pytest.raises(ValueError, match="does not take"):
+        kk.checkmate(x[:, :4].contiguous(), 12, 12, 0)
+    with pytest.raises(ValueError, match="does not take"):
+        km.comb_mask(x[:, :2].contiguous(), 6, 9, False, True)

@@ -6,8 +6,10 @@ bench's two Deband rows (``deband(sample_mode=1)`` and ``deband()``,
 ``bench.py:113-116``), the CLAHE and EEDI3 rows (``clahe(c)`` on GRAY8
 and ``eedi3(c, field=1, dh=True)`` on GRAYS, ``bench.py:118-125``) and the
 metric rows (``xpsnr(c1, c2, fps=24)`` and ``ssimulacra2(r1, r2)``, built
-as ``bench.py:151-168`` builds them).  The JAX clip's state crosses over
-through ``from_reference``.
+as ``bench.py:151-168`` builds them), and the 8-bit rows of
+``chip_smoke.py`` (``compress(c)``, ``compress(c, codec=1, quality=95)``,
+``checkmate(c)``, ``checkmate(c, tthr2=10)``, ``comb_mask(c)``).  The JAX
+clip's state crosses over through ``from_reference``.
 
 Tolerance: every integer plane bit-exact; EEDI3's f32 planes within
 max |d| < 2e-6 (the ROADMAP's EEDI3 criterion); XPSNR's ``_XPSNR_WSSE``
@@ -16,7 +18,8 @@ equal and its props within rtol 1e-12; the SSIMULACRA2 score within rtol
 YUV420P16 (the bench runs 64 frames of 1920x1080); CLAHE 4 frames of
 108x192 GRAY8 (bench: 64 of 1080x1920), EEDI3 2 frames of 27x96 GRAYS
 (bench: 8 of 540x1920), XPSNR 4 frames of 128x192 YUV420P10 (bench: 32 of
-1080p), SSIMULACRA2 2 frames of 128x192 RGBS (bench: 8 of 1080p).
+1080p), SSIMULACRA2 2 frames of 128x192 RGBS (bench: 8 of 1080p), the
+8-bit rows 4 frames of 74x102 YUV420P8 (``chip_smoke.py``: 64 of 1080p).
 """
 
 import numpy as np
@@ -117,3 +120,34 @@ def test_slice_metric_rows_match_jax(row):
         got = vt.ssimulacra2(_port(r1), _port(r2)).props["SSIMULACRA2"].numpy()
         np.testing.assert_allclose(got, want, rtol=1e-3, atol=1e-6,
                                    err_msg=f"max |d| {np.abs(got - want).max():.3e}")
+
+
+INT8_ROWS = {
+    "compress_mpeg2_q8": lambda m, c: m.compress(c),
+    "compress_jpeg_q95": lambda m, c: m.compress(c, codec=1, quality=95),
+    "checkmate_default": lambda m, c: m.checkmate(c),
+    "checkmate_tthr2": lambda m, c: m.checkmate(c, tthr2=10),
+    "comb_mask_default": lambda m, c: m.comb_mask(c),
+}
+
+
+@pytest.mark.parametrize("row", sorted(INT8_ROWS))
+def test_slice_int8_rows_match_jax(row):
+    """A smooth moving picture with noise and a band of combed rows, as
+    chip_smoke.py builds it, so both branches of each filter are taken."""
+    rng = np.random.default_rng(11)
+    fmt = vz.get_format("YUV420P8")
+    planes = []
+    for p in range(3):
+        pw, ph = fmt.plane_dims(102, 74, p)
+        y, x = np.mgrid[:ph, :pw]
+        f = np.arange(N)[:, None, None]
+        v = 128 + 60 * np.sin(x / 37 + f / 5) * np.cos(y / 23 - f / 11)
+        v = v + rng.integers(-3, 4, v.shape)
+        v[:, ph // 3:2 * ph // 3:2] += 40
+        planes.append(np.clip(v, 0, 255).astype(np.uint8))
+    cj = vz.Clip.from_planes(planes, fmt).device()
+    ct = vt.from_reference([np.asarray(p) for p in cj.planes], "YUV420P8", device="cpu")
+    got = INT8_ROWS[row](vt, ct)
+    assert got.format == ct.format and got.num_frames == N
+    assert_planes_match(got.planes, INT8_ROWS[row](vz, cj).planes)

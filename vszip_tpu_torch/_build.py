@@ -12,6 +12,9 @@ library        source                             compiler
 ``eedi3``      ``csrc/eedi3.cu``                  nvcc (``sm_90a``)
 ``xpsnr``      ``csrc/xpsnr.cu``                  nvcc (``sm_90a``)
 ``ssim``       ``csrc/ssim.cu``                   nvcc (``sm_90a``)
+``compress``   ``csrc/compress.cu``               nvcc (``sm_90a``)
+``checkmate``  ``csrc/checkmate.cu``              nvcc (``sm_90a``)
+``comb_mask``  ``csrc/comb_mask.cu``              nvcc (``sm_90a``)
 ``deband_rng`` ``runtime/native/deband_rng.cpp``  g++
 ``dither``     ``runtime/native/dither.cpp``      g++
 =============  =================================  =====================
@@ -54,6 +57,10 @@ LIBRARIES = {
     "eedi3": ("csrc/eedi3.cu", ("-fmad=false",)),
     "xpsnr": ("csrc/xpsnr.cu", ()),
     "ssim": ("csrc/ssim.cu", ("-fmad=false",)),
+    # integer only: nothing to contract
+    "compress": ("csrc/compress.cu", ()),
+    "checkmate": ("csrc/checkmate.cu", ()),
+    "comb_mask": ("csrc/comb_mask.cu", ()),
     "deband_rng": ("runtime/native/deband_rng.cpp", ()),
     "dither": ("runtime/native/dither.cpp", ()),
 }

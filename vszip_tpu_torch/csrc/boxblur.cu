@@ -37,6 +37,11 @@ namespace {
 constexpr int kChunk = 8;        // rows loaded ahead per step of a column walk
 constexpr int kColThreads = 128; // threads per block of a column kernel
 constexpr int kMaxGridY = 65535;
+// h_fixed: the most dynamic shared memory a Hopper block may take, and the
+// grid of the global-scratch variant (4 warps per block, 2 blocks per SM)
+constexpr size_t kMaxSmemBytes = 232448;
+constexpr int kScratchWarps = 4;
+constexpr long long kScratchBlocks = 264;
 
 __device__ __forceinline__ int mirror_dup(int k, int n) {
   return k < 0 ? -k - 1 : (k >= n ? 2 * n - 1 - k : k);
@@ -125,17 +130,22 @@ __global__ void v_fixed_kernel(const T* in, T* out, T* scratch, int n, int h,
 // a difference is exact while the window sum stays below 2^32, which the
 // wrapper guarantees (r < 32768).  Passes after the first read the previous
 // pass's row from `xs` in shared memory, so all passes cost one read and one
-// write of device memory.
-template <typename T>
+// write of device memory.  A row too long for shared memory (kGlobal) keeps
+// P and xs in the global buffer `gscratch` instead, one slice per warp of
+// the grid; the arithmetic is the same.  The variants are separate
+// instantiations so that the shared one keeps its shared-memory loads.
+template <typename T, bool kGlobal>
 __global__ void h_fixed_kernel(const T* in, T* out, long long rows, int w, int r,
-                               int passes, long long inv, long long inv2) {
+                               int passes, long long inv, long long inv2,
+                               uint32_t* gscratch) {
   extern __shared__ uint32_t smem[];
   const int lane = threadIdx.x & 31;
   const int warp = threadIdx.x >> 5;
   const int warps = blockDim.x >> 5;
   const int padded = w + 2 * r;
   const int per_warp = padded + 1 + (passes > 1 ? w : 0);
-  uint32_t* P = smem + (size_t)warp * per_warp;
+  uint32_t* P = kGlobal ? gscratch + ((size_t)blockIdx.x * warps + warp) * per_warp
+                       : smem + (size_t)warp * per_warp;
   uint32_t* xs = P + padded + 1;
   for (long long row = (long long)blockIdx.x * warps + warp; row < rows;
        row += (long long)gridDim.x * warps) {
@@ -244,25 +254,47 @@ int launch_v_fixed(const void* in, void* out, void* scratch, int n, int h, int w
   return (int)cudaGetLastError();
 }
 
+size_t h_fixed_words_per_warp(int w, int r, int passes) {
+  return (size_t)w + 2 * r + 1 + (passes > 1 ? w : 0);
+}
+
+// Words of global scratch h_fixed needs for these rows: 0 when one warp's
+// row fits in a block's shared memory (the path every row took before the
+// scratch existed), else one slice per warp of a grid of kScratchBlocks.
+long long h_fixed_scratch_words(long long rows, int w, int r, int passes) {
+  const size_t per_warp = h_fixed_words_per_warp(w, r, passes);
+  if (per_warp * sizeof(uint32_t) <= kMaxSmemBytes) return 0;
+  long long blocks = (rows + kScratchWarps - 1) / kScratchWarps;
+  if (blocks > kScratchBlocks) blocks = kScratchBlocks;
+  return blocks * kScratchWarps * (long long)per_warp;
+}
+
 template <typename T>
-int launch_h_fixed(const void* in, void* out, long long rows, int w, int r,
-                   int passes, cudaStream_t s) {
+int launch_h_fixed(const void* in, void* out, void* scratch, long long rows, int w,
+                   int r, int passes, cudaStream_t s) {
   long long inv, inv2;
   fixed_constants(r, &inv, &inv2);
-  const size_t per_warp =
-      (size_t)(w + 2 * r + 1 + (passes > 1 ? w : 0)) * sizeof(uint32_t);
+  if (h_fixed_scratch_words(rows, w, r, passes) > 0) {
+    if (scratch == nullptr) return (int)cudaErrorInvalidValue;
+    long long blocks = (rows + kScratchWarps - 1) / kScratchWarps;
+    if (blocks > kScratchBlocks) blocks = kScratchBlocks;
+    h_fixed_kernel<T, true><<<(unsigned)blocks, 32 * kScratchWarps, 0, s>>>(
+        (const T*)in, (T*)out, rows, w, r, passes, inv, inv2, (uint32_t*)scratch);
+    return (int)cudaGetLastError();
+  }
+  const size_t per_warp = h_fixed_words_per_warp(w, r, passes) * sizeof(uint32_t);
   int warps = 4;
   while (warps > 1 && per_warp * warps > 200 * 1024) --warps;
   const size_t bytes = per_warp * warps;
   if (bytes > 48 * 1024) {
     const cudaError_t e = cudaFuncSetAttribute(
-        h_fixed_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
+        h_fixed_kernel<T, false>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
     if (e != cudaSuccess) return (int)e;
   }
   long long blocks = (rows + warps - 1) / warps;
   if (blocks > (1LL << 30)) blocks = 1LL << 30;
-  h_fixed_kernel<T><<<(unsigned)blocks, 32 * warps, bytes, s>>>(
-      (const T*)in, (T*)out, rows, w, r, passes, inv, inv2);
+  h_fixed_kernel<T, false><<<(unsigned)blocks, 32 * warps, bytes, s>>>(
+      (const T*)in, (T*)out, rows, w, r, passes, inv, inv2, nullptr);
   return (int)cudaGetLastError();
 }
 
@@ -288,12 +320,17 @@ int vz_v_fixed(const void* in, void* out, void* scratch, int elem_bytes, int n,
              : launch_v_fixed<uint16_t>(in, out, scratch, n, h, w, r, passes, s);
 }
 
-int vz_h_fixed(const void* in, void* out, int elem_bytes, long long rows, int w,
-               int r, int passes, void* stream) {
+// The uint32 words of scratch vz_h_fixed needs (0: none; pass null).
+long long vz_h_fixed_scratch_words(long long rows, int w, int r, int passes) {
+  return h_fixed_scratch_words(rows, w, r, passes);
+}
+
+int vz_h_fixed(const void* in, void* out, void* scratch, int elem_bytes, long long rows,
+               int w, int r, int passes, void* stream) {
   cudaStream_t s = (cudaStream_t)stream;
   return elem_bytes == 1
-             ? launch_h_fixed<uint8_t>(in, out, rows, w, r, passes, s)
-             : launch_h_fixed<uint16_t>(in, out, rows, w, r, passes, s);
+             ? launch_h_fixed<uint8_t>(in, out, scratch, rows, w, r, passes, s)
+             : launch_h_fixed<uint16_t>(in, out, scratch, rows, w, r, passes, s);
 }
 
 int vz_ct_v_quant(const void* in, void* out, int elem_bytes, int n, int h, int w,
