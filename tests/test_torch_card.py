@@ -1,7 +1,8 @@
 """The CUDA kernels on the card: each against its plain PyTorch version, the
 slice (BoxBlur, Limiter, Deband, CLAHE, EEDI3, XPSNR, SSIMULACRA2, Compress,
-Checkmate, CombMask, CombMaskMT) on the card against the port's CPU path, the launch counters, and the wrappers'
-input checks.  Every test here needs an NVIDIA GPU and skips
+Checkmate, CombMask, CombMaskMT, BilateralDither, MosquitoNR) on the card
+against the port's CPU path, the launch counters, and the wrappers' input
+checks.  Every test here needs an NVIDIA GPU and skips
 without one.  This file imports no JAX (the card's machine has none), so it
 runs there on its own, without tests/conftest.py:
 
@@ -28,6 +29,7 @@ import pytest
 import torch
 
 import vszip_tpu_torch as vt
+from vszip_tpu_torch.kernels import bilateral_dither as kbd
 from vszip_tpu_torch.kernels import boxblur as kb
 from vszip_tpu_torch.kernels import checkmate as kk
 from vszip_tpu_torch.kernels import comb_mask as km
@@ -625,3 +627,170 @@ def test_integer_filter_wrappers_reject_what_kernels_do_not_take(cuda):
         kk.checkmate(x[:, :4].contiguous(), 12, 12, 0)
     with pytest.raises(ValueError, match="does not take"):
         km.comb_mask(x[:, :2].contiguous(), 6, 9, False, True)
+
+
+# ---------------------------------------------------------------------------
+# BilateralDither (B17, B18) and MosquitoNR
+# ---------------------------------------------------------------------------
+
+_bd_op = importlib.import_module("vszip_tpu_torch.ops.bilateral_dither")
+
+
+def _banded(shape, dtype, device, seed):
+    """A smooth gradient quantised into 8-bit steps plus noise of one step."""
+    n, h, w = shape
+    g = torch.Generator(device=device).manual_seed(seed)
+    y = torch.arange(h, device=device).view(1, h, 1).float()
+    x = torch.arange(w, device=device).view(1, 1, w).float()
+    v = torch.floor(255 * (0.5 + 0.35 * torch.sin(x / 29) * torch.cos(y / 17)))
+    v = (v + torch.randint(-1, 2, shape, generator=g, device=device)).expand(shape)
+    if dtype == torch.float32:
+        return (v / 255).contiguous()
+    return (v * (1 if dtype == torch.uint8 else 256)).to(torch.int32).to(dtype).contiguous()
+
+
+def _bd_consts(dtype):
+    """(m, wmax, swmin, peak) at thr 8, flat 0.4, as f32 values."""
+    scale = {torch.uint8: 1.0, torch.uint16: 256.0, torch.float32: 1 / 256}[dtype]
+    peak = {torch.uint8: 255.0, torch.uint16: 65535.0, torch.float32: 0.0}[dtype]
+    unit = 1 / 65535 if dtype == torch.float32 else 1.0
+    return (*(float(np.float32(v)) for v in (8 * scale, 8 * 0.6 * scale, unit)), peak)
+
+
+def _bd_hold(x, ref, r, dyx):
+    """B17 and B18 against their plain versions; each launches once."""
+    c = _bd_consts(x.dtype)
+    start = _bd_op._start_rows(x.shape[1], str(x.device))
+    kbd.reset_launches()
+    got = kbd.dense_blur(x, ref, r, *c), kbd.subspl_blur(x, ref, r, start, dyx, *c)
+    assert kbd.LAUNCHES == {"dense_blur": 1, "subspl_blur": 1}
+    assert _same(got[0], kbd.dense_blur_ref(x, ref, r, *c))
+    assert _same(got[1], kbd.subspl_blur_ref(x, ref, r, start, dyx, *c))
+
+
+@pytest.mark.parametrize("dtype", [torch.uint8, torch.uint16, torch.float32], ids=str)
+@pytest.mark.parametrize("has_ref", [False, True])
+@pytest.mark.parametrize("shape,r", [((2, 37, 53), 2), ((1, 67, 45), 8), ((2, 135, 241), 16),
+                                     ((1, 70, 81), 33)], ids=str)
+def test_bilateral_dither_kernels_match_plain(cuda, dtype, has_ref, shape, r):
+    x = _banded(shape, dtype, cuda, r)
+    ref = _banded(shape, dtype, cuda, r + 1) if has_ref else None
+    # r 33: spiral lists (its default size-32 VNC matrix takes 17 s on the host)
+    _bd_hold(x, ref, r, _bd_op._table(r, 0.0 if r <= 16 else 200.0, str(cuda))[0])
+
+
+@pytest.mark.parametrize("r,has_ref", [(74, True), (75, True), (109, False), (110, False)],
+                         ids=str)
+def test_bilateral_dither_kernels_at_the_shared_memory_edge(cuda, r, has_ref):
+    """The largest radii whose tile and halo fit a block's shared memory, and
+    the smallest that do not (every tap from device memory), on a plane
+    barely larger than the radius."""
+    shape = (1, r + 2, r + 5)
+    x = _banded(shape, torch.uint16, cuda, r)
+    ref = _banded(shape, torch.uint16, cuda, r + 1) if has_ref else None
+    _bd_hold(x, ref, r, _bd_op._table(r, 4096.0, str(cuda))[0])
+
+
+def test_bilateral_dither_table_beyond_shared_memory(cuda):
+    """r 64, subspl 4: k = 4032 points, 23 x 4032 int16 pairs (371 KB) read
+    through the read-only cache beside a shared-memory tile."""
+    dyx, k = _bd_op._table(64, 4.0, str(cuda))
+    assert k == 4032
+    for has_ref in (False, True):
+        x = _banded((1, 70, 90), torch.uint16, cuda, 3)
+        _bd_hold(x, _banded((1, 70, 90), torch.uint16, cuda, 4) if has_ref else None, 64, dyx)
+
+
+@pytest.mark.parametrize("r", [2, 8, 16, 33, 75, 110, 200])
+def test_bilateral_dither_never_takes_the_plain_version_on_the_card(cuda, monkeypatch, r):
+    """At every radius the op on a CUDA tensor launches a kernel and never
+    reaches a plain version."""
+    def boom(*a, **k):
+        raise AssertionError("plain version on a CUDA tensor")
+
+    monkeypatch.setattr(kbd, "dense_blur_ref", boom)
+    monkeypatch.setattr(kbd, "subspl_blur_ref", boom)
+    c = vt.Clip.from_planes([_banded((1, max(16, r + 3), r + 20), torch.uint16, cuda, r)],
+                            vt.get_format("GRAY16"), device=cuda)
+    for args, kernel in (({"subspl": 2.0}, "dense_blur"), ({"subspl": 4096.0}, "subspl_blur")):
+        kbd.reset_launches()
+        out = vt.bilateral_dither(c, radius=r, ref=c, **args).planes[0]
+        torch.cuda.synchronize()
+        assert out.is_cuda and {k: n for k, n in kbd.LAUNCHES.items() if n} == {kernel: 1}
+
+
+@pytest.mark.parametrize("fmt,args,launches", [
+    ("GRAY8", {"radius": 6, "thr": 24.0, "subspl": 2.0}, {"dense_blur": 1}),
+    ("GRAYS", {"radius": 6}, {"subspl_blur": 1}),
+    ("YUV420P16", {}, {"subspl_blur": 3}),
+    ("YUV420P16", {"radius": 8, "thr": 8.0, "subspl": 2.0}, {"dense_blur": 3}),
+    ("YUV444P16", {"radius": [8, 4, 6], "subspl": 2.0}, {"dense_blur": 3}),
+    ("YUV420P16", {"radius": 8, "planes": [0]}, {"subspl_blur": 1}),
+    ("GRAY16", {"radius": 2}, {"subspl_blur": 1}),
+    ("GRAY16", {"radius": 7, "subspl": 8.0}, {"subspl_blur": 1}),
+    ("GRAY16", {"radius": 7, "subspl": 4.0}, {"subspl_blur": 1}),
+    ("RGB24", {"radius": 4, "subspl": 8.0, "flat": 1.0}, {"subspl_blur": 3}),
+], ids=str)
+@pytest.mark.parametrize("with_ref", [False, True])
+def test_bilateral_dither_on_card_matches_cpu(cuda, fmt, args, launches, with_ref):
+    f = vt.get_format(fmt)
+    dtype = f.torch_dtype
+
+    def clip(seed):
+        return vt.Clip.from_planes(
+            [_banded((2,) + f.plane_dims(96, 64, p)[::-1], dtype, cuda, seed + p)
+             for p in range(f.num_planes)], f, device=cuda)
+
+    c = clip(0)
+    ref = clip(10) if with_ref else None
+    kbd.reset_launches()
+    got = vt.bilateral_dither(c, ref=ref, **args)
+    assert {k: n for k, n in kbd.LAUNCHES.items() if n} == launches
+    want = vt.bilateral_dither(c.to("cpu"), ref=None if ref is None else ref.to("cpu"), **args)
+    for g, w_ in zip(got.planes, want.planes):
+        assert g.is_cuda and _same(g.cpu(), w_)
+
+
+@pytest.mark.parametrize("fmt,args", [
+    ("GRAY16", {}), ("GRAY8", {"restore": 0, "radius": 1}), ("GRAY16", {"restore": 64}),
+    ("YUV420P10", {"planes": [0, 1, 2], "strength": 32}), ("GRAYS", {"restore": 96}),
+    ("YUV444PS", {"planes": [0, 1, 2], "restore": 64, "radius": 1}),
+], ids=str)
+def test_mosquito_nr_on_card_matches_cpu(cuda, fmt, args):
+    f = vt.get_format(fmt)
+    g = torch.Generator(device=cuda).manual_seed(7)
+    planes = []
+    for p in range(f.num_planes):
+        shape = (2,) + f.plane_dims(96, 64, p)[::-1]
+        if f.sample_type is vt.SampleType.FLOAT:
+            planes.append(torch.rand(shape, generator=g, device=cuda))
+        else:
+            top = 1 << f.bits_per_sample
+            planes.append(torch.randint(0, top, shape, generator=g, device=cuda,
+                                        dtype=torch.int32).to(f.torch_dtype))
+    c = vt.Clip.from_planes(planes, f, device=cuda)
+    got = vt.mosquito_nr(c, **args)
+    want = vt.mosquito_nr(c.to("cpu"), **args)
+    for g_, w_ in zip(got.planes, want.planes):
+        assert g_.is_cuda and _same(g_.cpu(), w_)
+
+
+def test_bilateral_dither_wrappers_reject_what_kernels_do_not_take(cuda):
+    x = _banded((1, 40, 48), torch.uint16, cuda, 0)
+    c = _bd_consts(torch.uint16)
+    dyx, _ = _bd_op._table(4, 0.0, str(cuda))
+    start = _bd_op._start_rows(40, str(cuda))
+    with pytest.raises(ValueError, match="uint8, uint16"):
+        kbd.dense_blur(x.to(torch.int32), None, 4, *c)
+    with pytest.raises(ValueError, match="contiguous"):
+        kbd.dense_blur(x.transpose(1, 2), None, 4, *c)
+    with pytest.raises(ValueError, match="ref"):
+        kbd.dense_blur(x, x[:, :39].contiguous(), 4, *c)
+    with pytest.raises(ValueError, match="radius 41"):
+        kbd.dense_blur(x, None, 41, *c)
+    with pytest.raises(ValueError, match="int32 start"):
+        kbd.subspl_blur(x, None, 4, start[:39], dyx, *c)
+    with pytest.raises(ValueError, match="int16 table"):
+        kbd.subspl_blur(x, None, 4, start, dyx.to(torch.int32), *c)
+    with pytest.raises(ValueError, match="within"):
+        kbd.subspl_blur(x, None, 3, start, dyx, *c)

@@ -8,8 +8,10 @@ and ``eedi3(c, field=1, dh=True)`` on GRAYS, ``bench.py:118-125``) and the
 metric rows (``xpsnr(c1, c2, fps=24)`` and ``ssimulacra2(r1, r2)``, built
 as ``bench.py:151-168`` builds them), and the 8-bit rows of
 ``chip_smoke.py`` (``compress(c)``, ``compress(c, codec=1, quality=95)``,
-``checkmate(c)``, ``checkmate(c, tthr2=10)``, ``comb_mask(c)``).  The JAX
-clip's state crosses over through ``from_reference``.
+``checkmate(c)``, ``checkmate(c, tthr2=10)``, ``comb_mask(c)``) and its
+banded rows (``bilateral_dither(c)``, ``bilateral_dither(c, radius=8,
+thr=8.0, subspl=2.0)``, ``mosquito_nr(c)``).  The JAX clip's state
+crosses over through ``from_reference``.
 
 Tolerance: every integer plane bit-exact; EEDI3's f32 planes within
 max |d| < 2e-6 (the ROADMAP's EEDI3 criterion); XPSNR's ``_XPSNR_WSSE``
@@ -19,7 +21,8 @@ YUV420P16 (the bench runs 64 frames of 1920x1080); CLAHE 4 frames of
 108x192 GRAY8 (bench: 64 of 1080x1920), EEDI3 2 frames of 27x96 GRAYS
 (bench: 8 of 540x1920), XPSNR 4 frames of 128x192 YUV420P10 (bench: 32 of
 1080p), SSIMULACRA2 2 frames of 128x192 RGBS (bench: 8 of 1080p), the
-8-bit rows 4 frames of 74x102 YUV420P8 (``chip_smoke.py``: 64 of 1080p).
+8-bit rows 4 frames of 74x102 YUV420P8 and the banded rows 4 frames of
+74x102 YUV420P16 (``chip_smoke.py``: 64 of 1080p).
 """
 
 import numpy as np
@@ -151,3 +154,35 @@ def test_slice_int8_rows_match_jax(row):
     got = INT8_ROWS[row](vt, ct)
     assert got.format == ct.format and got.num_frames == N
     assert_planes_match(got.planes, INT8_ROWS[row](vz, cj).planes)
+
+
+BANDED_ROWS = {
+    "bilateral_dither_default": lambda m, c: m.bilateral_dither(c),
+    "bilateral_dither_r8_dense": lambda m, c: m.bilateral_dither(c, radius=8, thr=8.0,
+                                                                  subspl=2.0),
+    "mosquito_nr_default": lambda m, c: m.mosquito_nr(c),
+}
+
+
+@pytest.mark.parametrize("row", sorted(BANDED_ROWS))
+def test_slice_banded_rows_match_jax(row):
+    """A smooth gradient quantised into 8-bit steps that moves a little per
+    frame, noise of +-1 step and a flat top eighth, as chip_smoke.py builds
+    it, so BilateralDither's weights fall between 0 and wmax."""
+    rng = np.random.default_rng(12)
+    fmt = vz.get_format("YUV420P16")
+    planes = []
+    for p in range(3):
+        pw, ph = fmt.plane_dims(102, 74, p)
+        y, x = np.mgrid[:ph, :pw]
+        f = np.arange(N)[:, None, None]
+        v = np.floor(255 * (0.5 + 0.35 * np.sin(x / 9 + f / 7) * np.cos(y / 7 - f / 13)))
+        v = v + rng.integers(-1, 2, v.shape)
+        v[:, :ph // 8] = 128
+        planes.append((v * 256).astype(np.uint16))
+    cj = vz.Clip.from_planes(planes, fmt).device()
+    ct = vt.from_reference([np.asarray(p) for p in cj.planes], "YUV420P16", device="cpu")
+    got = BANDED_ROWS[row](vt, ct)
+    assert got.format == ct.format and got.num_frames == N
+    assert_planes_match(got.planes, BANDED_ROWS[row](vz, cj).planes)
+    assert 0.01 < (got.planes[0].numpy() != planes[0]).mean() < 0.99

@@ -3,11 +3,13 @@
 The same surface as ``vszip_tpu`` for the ported slice: a ``Clip`` of
 ``(N, H, W)`` plane tensors, the format and parameter layer, and the filters
 BoxBlur, Deband, Limiter, CLAHE, EEDI3/EEDI3H, Compress, Checkmate,
-CombMask, CombMaskMT and the metrics XPSNR and SSIMULACRA2 with the same
+CombMask, CombMaskMT, BilateralDither, MosquitoNR and the metrics XPSNR and
+SSIMULACRA2 with the same
 arguments, validation messages and results, and the format conversions
 ``bit_depth``, ``resize``, ``to_rgbs`` and ``srgb_to_linear``.  Integer
-BoxBlur, Deband, 8-bit CLAHE, EEDI3, Compress, Checkmate, CombMask, XPSNR's
-block statistics and SSIMULACRA2's per-scale sums run hand-written CUDA
+BoxBlur, Deband, 8-bit CLAHE, EEDI3, Compress, Checkmate, CombMask,
+BilateralDither, XPSNR's block statistics and SSIMULACRA2's per-scale sums
+run hand-written CUDA
 kernels (``csrc/``) on CUDA tensors and their plain PyTorch versions on CPU
 tensors.
 Clips are made on the card unless the caller asks for another device.  The
@@ -24,8 +26,8 @@ from .core.format import (
 )
 from .core.params import VSZipError
 from .core.resample import bit_depth, resize, srgb_to_linear, to_rgbs
-from .ops import (boxblur, checkmate, clahe, comb_mask, comb_mask_mt, compress, deband, eedi3,
-                  eedi3h, limiter, ssimulacra2, xpsnr)
+from .ops import (bilateral_dither, boxblur, checkmate, clahe, comb_mask, comb_mask_mt, compress,
+                  deband, eedi3, eedi3h, limiter, mosquito_nr, ssimulacra2, xpsnr)
 
 __all__ = [
     "Clip",
@@ -42,6 +44,7 @@ __all__ = [
     "resize",
     "srgb_to_linear",
     "to_rgbs",
+    "bilateral_dither",
     "boxblur",
     "checkmate",
     "clahe",
@@ -52,6 +55,7 @@ __all__ = [
     "eedi3",
     "eedi3h",
     "limiter",
+    "mosquito_nr",
     "ssimulacra2",
     "xpsnr",
 ]

@@ -3,21 +3,22 @@
 Every library is one source file compiled into a shared library with a plain
 C interface and loaded with ``ctypes``:
 
-=============  =================================  =====================
-library        source                             compiler
-=============  =================================  =====================
-``boxblur``    ``csrc/boxblur.cu``                nvcc (``sm_90a``)
-``deband``     ``csrc/deband.cu``                 nvcc (``sm_90a``)
-``clahe``      ``csrc/clahe.cu``                  nvcc (``sm_90a``)
-``eedi3``      ``csrc/eedi3.cu``                  nvcc (``sm_90a``)
-``xpsnr``      ``csrc/xpsnr.cu``                  nvcc (``sm_90a``)
-``ssim``       ``csrc/ssim.cu``                   nvcc (``sm_90a``)
-``compress``   ``csrc/compress.cu``               nvcc (``sm_90a``)
-``checkmate``  ``csrc/checkmate.cu``              nvcc (``sm_90a``)
-``comb_mask``  ``csrc/comb_mask.cu``              nvcc (``sm_90a``)
-``deband_rng`` ``runtime/native/deband_rng.cpp``  g++
-``dither``     ``runtime/native/dither.cpp``      g++
-=============  =================================  =====================
+====================  =================================  =====================
+library               source                             compiler
+====================  =================================  =====================
+``boxblur``           ``csrc/boxblur.cu``                nvcc (``sm_90a``)
+``deband``            ``csrc/deband.cu``                 nvcc (``sm_90a``)
+``clahe``             ``csrc/clahe.cu``                  nvcc (``sm_90a``)
+``eedi3``             ``csrc/eedi3.cu``                  nvcc (``sm_90a``)
+``xpsnr``             ``csrc/xpsnr.cu``                  nvcc (``sm_90a``)
+``ssim``              ``csrc/ssim.cu``                   nvcc (``sm_90a``)
+``bilateral_dither``  ``csrc/bilateral_dither.cu``       nvcc (``sm_90a``)
+``compress``          ``csrc/compress.cu``               nvcc (``sm_90a``)
+``checkmate``         ``csrc/checkmate.cu``              nvcc (``sm_90a``)
+``comb_mask``         ``csrc/comb_mask.cu``              nvcc (``sm_90a``)
+``deband_rng``        ``runtime/native/deband_rng.cpp``  g++
+``dither``            ``runtime/native/dither.cpp``      g++
+====================  =================================  =====================
 
 Libraries go to ``build/vszip_tpu_torch/<name>_<hash>.so`` at the root of
 the checkout, keyed by a hash of the source and the flags, never beside the
@@ -47,7 +48,8 @@ GXX_FLAGS = ("-O2", "-fPIC", "-shared")
 
 # name -> (source relative to the package, extra flags).  deband.cu's mode 6
 # (the VCL pow polynomial), CLAHE's blend, EEDI3's cost, DP and
-# interpolation and SSIMULACRA2's blurs and maps pin their f32 order:
+# interpolation, SSIMULACRA2's blurs and maps and BilateralDither's tap sums
+# pin their f32 order:
 # -fmad=false stops nvcc contracting a*b+c into FMA, so they round as the
 # plain torch versions.
 LIBRARIES = {
@@ -57,6 +59,7 @@ LIBRARIES = {
     "eedi3": ("csrc/eedi3.cu", ("-fmad=false",)),
     "xpsnr": ("csrc/xpsnr.cu", ()),
     "ssim": ("csrc/ssim.cu", ("-fmad=false",)),
+    "bilateral_dither": ("csrc/bilateral_dither.cu", ("-fmad=false",)),
     # integer only: nothing to contract
     "compress": ("csrc/compress.cu", ()),
     "checkmate": ("csrc/checkmate.cu", ()),
