@@ -274,11 +274,22 @@ def _eedi3_rows(b, l, w, seed, device, smooth=False):
 COEFS = (0.2 / 3, 0.25 / 255, 20.0 / 255, 0.55)
 
 
-@pytest.mark.parametrize("w,mdis,nrad", [(1920, 20, 2), (77, 3, 1), (1920, 40, 3), (5, 3, 0)],
-                         ids=str)
-@pytest.mark.parametrize("smooth", [False, True], ids=["noise", "smooth"])
+# The line kernel cuts x into chunks of 64 positions and gives each DP lane
+# K directions: widths below, at and one past a chunk, a multiple of it,
+# one position and 3840 (narrow rows keep their backtrack deltas in shared
+# memory, wide ones in the global scratch); mdis 1-40 reaches every K of
+# both kernels (non-hp 1-3, hp 1-6), nrad 0-3.  "huge" rows saturate every
+# cost at BIG, so the DP's candidates tie at the edges and hp's backtrack
+# leaves the directions.
+@pytest.mark.parametrize("w,mdis,nrad", [
+    (1920, 20, 2), (77, 3, 1), (1920, 40, 3), (5, 3, 0), (1, 4, 2), (39, 1, 0), (40, 7, 3),
+    (41, 8, 1), (63, 16, 2), (64, 24, 3), (65, 33, 0), (128, 12, 2), (3840, 20, 2)], ids=str)
+@pytest.mark.parametrize("smooth", [False, True, None], ids=["noise", "smooth", "huge"])
 def test_eedi3_kernels_match_plain(cuda, w, mdis, nrad, smooth):
-    rows = _eedi3_rows(2, 3, w, 1, cuda, smooth)
+    if smooth is None:
+        rows = [r * 1e37 for r in _eedi3_rows(2, 3, w, 1, cuda)]
+    else:
+        rows = _eedi3_rows(2, 3, w, 1, cuda, smooth)
     a, b, g, om = (float(np.float32(c)) for c in COEFS)
     gm = torch.Generator().manual_seed(2)
     mask = (torch.rand((2, 3, w), generator=gm) > 0.3).to(cuda)

@@ -4,8 +4,8 @@ counters.
 =====================  ================================================  =====================
 wrapper                replaces (vszip_tpu/kernels/...)                  CUDA kernel
 =====================  ================================================  =====================
-``eedi3_fused``        ``eedi3_fused_pallas`` (eedi3_fused_pallas.py:300)  eedi3_line_kernel<0,M>
-``eedi3_fused_hp``     ``eedi3_fused_hp_pallas`` (:607)                   eedi3_line_kernel<1,0>
+``eedi3_fused``        ``eedi3_fused_pallas`` (eedi3_fused_pallas.py:300)  eedi3_line_kernel<0,M,K>
+``eedi3_fused_hp``     ``eedi3_fused_hp_pallas`` (:607)                   eedi3_line_kernel<1,0,K>
 ``vcheck``             ``vcheck_pallas`` (vcheck_pallas.py:163)           vcheck_kernel
 =====================  ================================================  =====================
 
