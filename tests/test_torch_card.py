@@ -322,22 +322,83 @@ def test_eedi3_kernels_match_plain_on_ties(cuda, hp):
         assert torch.equal(fp, rf) and torch.equal(out, ro)
 
 
+def _vcheck_inputs(n_off, b, w, drange, device, seed):
+    """B10's inputs with directions in [-drange, drange]: a third of them at
+    +-drange, and most columns sharing one direction over the lines off-1,
+    off, off+1, so that most pixels are not kept and gather; rows near 0.5
+    with small differences, so that the blend is neither 0 nor 1."""
+    g = torch.Generator().manual_seed(seed)
+    dl, nb = (0.5 + 0.05 * torch.rand(s, generator=g) for s in ((n_off, b, w), (n_off, 3, b, w)))
+    base = torch.randint(-drange, drange + 1, (n_off, 1, b, w), generator=g, dtype=torch.int32)
+    edge = torch.rand(base.shape, generator=g) < 0.33
+    base = torch.where(edge, torch.where(base < 0, -drange, drange), base).to(torch.int32)
+    noise = torch.randint(-drange, drange + 1, (n_off, 3, b, w), generator=g, dtype=torch.int32)
+    mixed = torch.rand((n_off, 3, b, w), generator=g) < 0.2
+    dm = torch.where(mixed, noise, base.expand(-1, 3, -1, -1))
+    cint = torch.rand((n_off, b, w), generator=g)
+    init = 0.5 + 0.05 * torch.rand((b, w), generator=g)
+    return [t.contiguous().to(device) for t in (dl, nb, dm, cint, init)]
+
+
+# B10 splits a frame into slices of at least mdis columns (240 at 1920):
+# widths below, at and past a slice, one halo and two, and 3840
+VCHECK_SHAPES = sorted({(w, mdis) for mdis in (1, 3, 20, 40)
+                        for w in (1, 2, 7, mdis, 2 * mdis + 1, 239, 240, 241, 1920, 3840)})
+
+
 @pytest.mark.parametrize("hp", [False, True])
 @pytest.mark.parametrize("mode", [1, 2, 3])
-@pytest.mark.parametrize("w,mdis", [(1920, 20), (77, 3)], ids=str)
-def test_vcheck_kernel_matches_plain(cuda, hp, mode, w, mdis):
-    g = torch.Generator().manual_seed(10 * mode + hp)
-    n_off, b = 9, 3
+@pytest.mark.parametrize("n_off,b", [(9, 3), (1, 1), (2, 9)], ids=str)
+@pytest.mark.parametrize("w,mdis", VCHECK_SHAPES, ids=str)
+def test_vcheck_kernel_matches_plain(cuda, hp, mode, n_off, b, w, mdis):
     drange = 2 * mdis if hp else mdis
-    args = [torch.rand(s, generator=g).to(cuda) for s in
-            ((n_off, b, w), (n_off, 3, b, w))]
-    dm = torch.randint(-drange, drange + 1, (n_off, 3, b, w), generator=g,
-                       dtype=torch.int32).to(cuda)
-    cint, init = torch.rand((n_off, b, w), generator=g).to(cuda), torch.rand((b, w), generator=g).to(cuda)
+    args = _vcheck_inputs(n_off, b, w, drange, cuda, 10 * mode + hp + w + mdis)
     rc = [float(np.float32(v)) for v in (255 / 32, 255 / 64, 1 / 4, 4)]
-    got = ke.vcheck(args[0], args[1], dm, cint, init, w, mdis, hp, mode, *rc)
-    want = ke.vcheck_ref(args[0], args[1], dm, cint, init, w, mdis, hp, mode, *rc)
+    got = ke.vcheck(*args, w, mdis, hp, mode, *rc)
+    want = ke.vcheck_ref(*args, w, mdis, hp, mode, *rc)
     assert torch.equal(got, want)
+
+
+@pytest.mark.parametrize("hp", [False, True])
+@pytest.mark.parametrize("w", [10000, 29000])
+def test_vcheck_kernel_takes_wide_rows(cuda, hp, w):
+    # slices past 1024 columns (two per thread) and, at 29,000 (about the
+    # widest row the first design took), a cluster of 16 blocks
+    args = _vcheck_inputs(3, 2, w, 80 if hp else 40, cuda, w + hp)
+    rc = [float(np.float32(v)) for v in (255 / 32, 255 / 64, 1 / 4, 4)]
+    assert torch.equal(ke.vcheck(*args, w, 40, hp, 2, *rc), ke.vcheck_ref(*args, w, 40, hp, 2, *rc))
+
+
+def _offset(t):
+    """`t` as a contiguous view that starts one element into its storage (so
+    not on 16 bytes)."""
+    return torch.empty(t.numel() + 1, dtype=t.dtype, device=t.device)[1:].view(t.shape).copy_(t)
+
+
+def test_kernels_take_unaligned_rows(cuda):
+    # B10's 16-byte copies and h_fixed's vector loads and stores need
+    # aligned rows; views off that alignment take the element-wise paths
+    args = [_offset(t) for t in _vcheck_inputs(5, 3, 1920, 20, cuda, 1)]
+    rc = [float(np.float32(v)) for v in (255 / 32, 255 / 64, 1 / 4, 4)]
+    assert args[0].data_ptr() % 16
+    assert torch.equal(ke.vcheck(*args, 1920, 20, False, 2, *rc),
+                       ke.vcheck_ref(*args, 1920, 20, False, 2, *rc))
+    for dtype in (torch.uint8, torch.uint16):
+        x = _offset(_rand((2, 16, 1920), dtype, cuda, seed=3))
+        for p in (1, 3):
+            assert _same(kb.rt_blur_h(x, 13, p), kb.h_fixed_ref(x, 13, p))
+
+
+@pytest.mark.parametrize("hp", [False, True])
+@pytest.mark.parametrize("w,mdis", [(7, 1), (96, 3), (241, 3), (1920, 20)], ids=str)
+def test_vcheck_takes_directions_past_the_halo(cuda, hp, w, mdis):
+    # B9's backtrack can walk past its directions (saturated costs), so a
+    # direction may reach any column: B10 reads the columns past its halo
+    # from device memory, behind a cluster barrier on the lines that need it
+    args = _vcheck_inputs(9, 3, w, max(w // 2, 4 * mdis), cuda, 5 + w + hp)
+    rc = [float(np.float32(v)) for v in (255 / 32, 255 / 64, 1 / 4, 4)]
+    assert torch.equal(ke.vcheck(*args, w, mdis, hp, 2, *rc),
+                       ke.vcheck_ref(*args, w, mdis, hp, 2, *rc))
 
 
 @pytest.mark.parametrize("fn,fmt,args", [
@@ -347,14 +408,20 @@ def test_vcheck_kernel_matches_plain(cuda, hp, mode, w, mdis):
     ("eedi3h", "GRAYS", {"field": 1, "mdis": 4, "nrad": 3, "vcheck": 1}),
     ("eedi3", "GRAYS", {"field": 1, "mdis": 4, "mclip": True}),
     ("eedi3", "GRAYS", {"field": 1, "mdis": 4, "hp": True, "mclip": True}),
+    # rows near 1e37 saturate every cost at BIG: B9's directions then walk
+    # far past +-2*mdis, and B10 takes them as the plain version does
+    ("eedi3", "GRAYS", {"field": 1, "hp": True, "mdis": 3, "vcheck": 1, "scale": 1e37}),
+    ("eedi3", "GRAYS", {"field": 1, "hp": True, "mdis": 3, "vcheck": 2, "scale": 1e37}),
+    ("eedi3", "GRAYS", {"field": 1, "hp": True, "mdis": 3, "vcheck": 3, "scale": 1e37}),
 ], ids=str)
 def test_eedi3_on_card_matches_cpu(cuda, fn, fmt, args):
     rng = np.random.default_rng(8)
     f = vt.get_format(fmt)
-    planes = [rng.random((2,) + f.plane_dims(96, 64, p)[::-1], dtype=np.float32)
+    args = dict(args)
+    scale = np.float32(args.pop("scale", 1.0))
+    planes = [rng.random((2,) + f.plane_dims(96, 64, p)[::-1], dtype=np.float32) * scale
               for p in range(f.num_planes)]
     cpu = vt.Clip.from_planes(planes, f, device="cpu")
-    args = dict(args)
     mclip = None
     if args.pop("mclip", False):
         m = (rng.random((2, 64, 96)) > 0.4).astype(np.uint8) * 255
@@ -537,6 +604,24 @@ def test_boxblur_rows_wider_than_shared_memory(cuda, dtype):
         assert _same(got.cpu(), vt.boxblur(c.to("cpu"), **args).planes[0])
     for p in (1, 5):
         assert _same(kb.rt_blur_h(x, 13, p), kb.h_fixed_ref(x, 13, p))
+
+
+@pytest.mark.parametrize("dtype", [torch.uint8, torch.uint16], ids=str)
+@pytest.mark.parametrize("w", [1, 2, 31, 33, 1920, 3840, 9000])
+def test_h_fixed_matches_plain_at_segment_edges(cuda, dtype, w):
+    # h_fixed cuts each padded row (w + 2r samples) into segments of 8, one
+    # per thread of a block of up to 1024 (more rounds past 8192 samples);
+    # widths not a multiple of 8 end on a partial segment and take scalar
+    # loads and stores; radii past the width take the comptime quirk's
+    # periodic mirror
+    x = _rand((2, 96, w), dtype, cuda, seed=w)
+    for r in (1, 13, 40, 500):
+        if r >= w and r != 40:
+            continue
+        for p in (1, 2, 3, 4, 5):
+            assert _same(kb.rt_blur_h(x, r, p), kb.h_fixed_ref(x, r, p)), (r, p)
+        if r < 48:  # the vertical window must fit the 96 rows
+            assert _same(kb.ct_blur_int(x, r), kb.ct_blur_int_ref(x, r)), r
 
 
 def _smooth_u8(shape, device, seed):

@@ -1,0 +1,339 @@
+#!/usr/bin/env python3
+"""Where the port's hand-written CUDA kernels spend their time, by
+``clock64()`` spans, on one NVIDIA GPU:
+
+    python3 tools/kernel_spans.py                   # every kernel below
+    python3 tools/kernel_spans.py vcheck h_fixed    # some of them
+
+For each kernel it copies the library's source from ``vszip_tpu_torch/csrc/``,
+inserts spans at fixed anchor lines of the kernel, builds the copy with the
+package's nvcc flags into ``build/kernel_spans/``, and runs the package's
+wrapper at the bench's shapes on the package's own build (timed by CUDA
+events) and once on the copy, whose outputs must be equal.  It prints the
+time, the mean cycles of each span, the resident blocks per SM
+(``cudaOccupancyMaxActiveBlocksPerMultiprocessor``) where the kernel
+exports the query, and ptxas' registers of the package's build:
+
+- ``eedi3_line`` (B8/B9, ``eedi3_line_kernel``) on 8 x 540 lines of w 1920,
+  mdis 20, nrad 2, uniform random rows; non-hp, masked and hp: the block's
+  time while the producer warps and the DP warp run, the DP warp's waits for
+  a full cost buffer, producer warp 0's waits for an empty one and at the
+  producers' end-of-chunk barrier, the backtrack and the interpolation;
+- ``vcheck`` (B10, ``vcheck_kernel``) on 8 frames x 538 lines of w 1920,
+  mdis 20, uniform random rows and directions in [-mdis, mdis] (hp
+  2*mdis), mode 2: thread 0's cycles per line in waiting for the line's
+  copies and the block's threads and issuing the next copies, in the line's
+  values that do not need cur, in waiting for the neighbours' halo strips,
+  and in finishing and storing its columns (on a line with a direction past
+  the halo also the cluster barrier and those columns).  It also builds a copy with a
+  cluster of one block (each frame's sweep on one block, the same ring and
+  values ahead) and times it beside the package's build, outputs equal;
+- ``h_fixed`` (B2 and B1's horizontal stage, ``h_fixed_kernel``) on the
+  luma of 64 frames of 1080p uint16, r 13 with 1 and 5 passes and r 23
+  with 1: thread 0's cycles per row in staging the row, in the segment sums
+  and scan, and in the window sums and output (all passes).
+
+The anchors are lines of the current sources; an older commit's kernels
+are read with that commit's tool (``git show <commit>:tools/...``).
+"""
+
+import ctypes
+import re
+import subprocess
+import sys
+from pathlib import Path
+
+import numpy as np
+import torch
+
+ROOT = Path(__file__).resolve().parent.parent
+sys.path.insert(0, str(ROOT))
+
+from vszip_tpu_torch import _build  # noqa: E402
+from vszip_tpu_torch.kernels import boxblur as kb  # noqa: E402
+from vszip_tpu_torch.kernels import eedi3 as ke  # noqa: E402
+from vszip_tpu_torch.ops.eedi3 import _pad_rows  # noqa: E402
+
+OUT = ROOT / "build" / "kernel_spans"
+SLOTS = 8  # the probe's counters: the spans, and the count they are divided by last
+FRAMES, LINES, W, MDIS, NRAD = 8, 538, 1920, 20, 2
+EEDI3_COEFS = tuple(float(np.float32(v)) for v in (0.2 / 3, 0.25 / 255, 20.0 / 255)) + (
+    float(np.float32(1.0) - np.float32(0.2) - np.float32(0.25)),)
+RCP = (7.96875, 3.984375, 0.25, 4.0)  # vcheck's reciprocals and vthresh2 (32, 64, 4)
+
+
+def _add(slot: int, value: str, who: str = "threadIdx.x == 0") -> str:
+    return f"if ({who}) atomicAdd(&g_span[{slot}], (unsigned long long)({value}));"
+
+
+# kernel -> (library, the wrapper module, span names, ((anchor, code before,
+# code after), ...), the C entry `vz_probe_occupancy(a, b, c, blocks,
+# threads)` or "")
+KERNELS = {
+    "eedi3_line": ("eedi3", ke, (
+        "roles (producers and DP)", "DP waits for costs", "producer 0 waits for a buffer",
+        "producer 0 waits at chunk end", "backtrack", "interpolation"), (
+        ("    if (c > 0) bar_sync_pair<kBarFull, Sh::threads>(buf);\n",
+         "    const long long ph_w = clock64();\n", ""),
+        ("    const float* Cb = C + buf * kXc * tp + t0;\n",
+         f"    {_add(1, 'clock64() - ph_w', 'lane == 0')}\n", ""),
+        ("    if (c >= 2) bar_sync_pair<kBarEmpty, Sh::threads>(buf);  "
+         "// the DP is done with chunk c-2\n", "    const long long ph_e = clock64();\n", ""),
+        ("    const int x0 = c * kXc, cn = min(kXc, w - x0);\n"
+         "    float* Cb = C + buf * kXc * tp;\n",
+         f"    {_add(2, 'clock64() - ph_e')}\n", ""),
+        ("    cp_async_wait_all();  // chunk c+1's windows are in; nobody reads chunk c's "
+         "any more\n",
+         "    const long long ph_p = clock64();\n", ""),
+        ("    if (threadIdx.x == 0) queue[buf] = 0;  // for chunk c+2\n",
+         f"    {_add(3, 'clock64() - ph_p')}\n", ""),
+        ("  if (warp < Sh::prod) {\n", "  long long ph_m = clock64();\n", ""),
+        ("  // ---- backtrack by chunks: fpath[w-1] = 0, fpath[x-1] = f(x) + delta(x) ----\n",
+         f"  {_add(0, 'clock64() - ph_m')}\n  ph_m = clock64();\n", ""),
+        ("  // ---- directional interpolation ----\n",
+         f"  {_add(4, 'clock64() - ph_m')}\n  ph_m = clock64();\n", ""),
+        ("      orow[x] = res;\n    }\n  }\n", "",
+         f"  __syncthreads();\n  {_add(5, 'clock64() - ph_m')}\n  {_add(SLOTS - 1, '1')}\n")), """
+extern "C" int vz_probe_occupancy(int w, int mdis, int variant, int* blocks, int* threads) {
+  const bool hp = variant == 2;
+  const Plan P = plan(w, mdis, hp);
+  const size_t bytes = P.base_bytes + (P.bt_smem ? 4 * (size_t)P.bt_words : 0);
+  const void* k = hp ? (const void*)eedi3_line_kernel<true, false, 3>
+                     : variant == 1 ? (const void*)eedi3_line_kernel<false, true, 2>
+                                    : (const void*)eedi3_line_kernel<false, false, 2>;
+  *threads = hp ? Shape<true>::threads : Shape<false>::threads;
+  cudaError_t e = cudaFuncSetAttribute(k, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                       (int)bytes);
+  if (e != cudaSuccess) return (int)e;
+  return (int)cudaOccupancyMaxActiveBlocksPerMultiprocessor(blocks, k, *threads, bytes);
+}
+"""),
+    "vcheck": ("eedi3", ke, (
+        "copies in, block sync, next copies issued", "values ahead of cur",
+        "neighbours' halo wait", "finish and store (far lines: the barrier and far columns)"), (
+        ("  const size_t fb = (size_t)b * w;\n", "",
+         "  long long sp_a = 0, sp_b = 0, sp_c = 0, sp_d = 0;\n"),
+        ("    cp_async_wait_pending(pl.ring - 2);\n    __syncthreads();\n",
+         "    long long sp0 = clock64();\n", ""),
+        ("    VcheckPre v[kCols];\n", "    long long sp1 = clock64();\n", ""),
+        ("    if (li > 0) {\n      // the neighbours' columns of line li-1 have landed in cur\n",
+         "    long long sp2 = clock64();\n", ""),
+        ("    unsigned far_cols = 0;  // bit k: column k reaches past the halo\n",
+         "    long long sp3 = clock64();\n", ""),
+        ("    float* t = cur;\n    cur = nxt;\n    nxt = t;\n  }\n  // no block leaves",
+         "    if (tid == 0) { sp_a += sp1 - sp0; sp_b += sp2 - sp1; sp_c += sp3 - sp2; "
+         "sp_d += clock64() - sp3; }\n", ""),
+        ("  // no block leaves while a neighbour may still address it\n",
+         f"  {_add(0, 'sp_a')} {_add(1, 'sp_b')} {_add(2, 'sp_c')} {_add(3, 'sp_d')} "
+         f"{_add(SLOTS - 1, 'n_off')}\n", "")), ""),
+    "h_fixed": ("boxblur", kb, (
+        "stage the row", "segment sums and scan", "window sums and output"), (
+        ("  V pre;\n", "", "  long long hs_fill = 0, hs_scan = 0, hs_out = 0, hs_n = 0;\n"),
+        ("    __syncthreads();  // the previous row's last reads of A are done\n",
+         "    long long hs0 = clock64();\n", ""),
+        ("    const long long next = row + gridDim.x;\n",
+         "    hs_fill += clock64() - hs0;\n    ++hs_n;\n", ""),
+        ("      uint32_t carry = 0;\n", "      long long hp0 = clock64();\n", ""),
+        ("      auto prefix = [&](int q) {\n",
+         "      long long hp1 = clock64();\n      hs_scan += hp1 - hp0;\n", ""),
+        ("      uint32_t* t = cur;\n      cur = nxt;\n", "      hs_out += clock64() - hp1;\n", ""),
+        ("}\n\n// One thread per column: the comptime path's raw vertical",
+         f"  {_add(0, 'hs_fill')} {_add(1, 'hs_scan')} {_add(2, 'hs_out')} "
+         f"{_add(SLOTS - 1, 'hs_n')}\n", "")), """
+extern "C" int vz_probe_occupancy(int w, int r, int passes, int* blocks, int* threads) {
+  const HShape hs = h_shape(w, r);
+  const size_t bytes = hs.block_words() * sizeof(uint32_t);
+  cudaError_t e = cudaFuncSetAttribute(h_fixed_kernel<uint16_t, false>,
+                                       cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
+  if (e != cudaSuccess) return (int)e;
+  *threads = hs.threads;
+  return (int)cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+      blocks, h_fixed_kernel<uint16_t, false>, hs.threads, bytes);
+}
+"""),
+}
+
+PROBE_READ = f"""
+extern "C" int vz_probe_read(unsigned long long* out) {{
+  cudaError_t e = cudaMemcpyFromSymbol(out, g_span, sizeof(g_span));
+  if (e != cudaSuccess) return (int)e;
+  unsigned long long zero[{SLOTS}] = {{0}};
+  return (int)cudaMemcpyToSymbol(g_span, zero, sizeof(zero));
+}}
+"""
+
+
+def instrument(kernel: str, src: str) -> str:
+    """`src` with `kernel`'s spans, the counters and the probe's entry
+    points; exits if an anchor is not found exactly once."""
+    _, _, _, spans, occupancy = KERNELS[kernel]
+    for anchor, before, after in spans:
+        if src.count(anchor) != 1:
+            raise SystemExit(f"kernel_spans: {kernel}: anchor not found once: {anchor!r}")
+        src = src.replace(anchor, before + anchor + after)
+    src = src.replace("namespace {\n",
+                      f"__device__ unsigned long long g_span[{SLOTS}];\n\nnamespace {{\n", 1)
+    return src + PROBE_READ + occupancy
+
+
+def build(lib: str, text: str, name: str, plain: ctypes.CDLL) -> ctypes.CDLL:
+    """`text` built as library `lib` would be, bound as the package's build
+    `plain` is."""
+    src, so = OUT / f"{name}.cu", OUT / f"{name}.so"
+    src.write_text(text)
+    log = subprocess.run([_build._nvcc(), *_build._flags(lib), "-o", str(so), str(src)],
+                         capture_output=True, text=True)
+    if log.returncode != 0:
+        raise SystemExit(f"kernel_spans: build of {name} failed:\n{log.stdout}{log.stderr}")
+    out = ctypes.CDLL(str(so))
+    for fn in re.findall(r"^\w[\w\s\*]*\b(vz_\w+)\(", _build.source(lib).read_text(), re.M):
+        getattr(out, fn).argtypes = getattr(plain, fn).argtypes
+        getattr(out, fn).restype = getattr(plain, fn).restype
+    if hasattr(out, "vz_probe_read"):
+        out.vz_probe_read.argtypes = [ctypes.c_void_p]
+    return out
+
+
+def registers(lib: str, kernel: str) -> str:
+    """ptxas' 'Used ...' and stack frame lines of each instantiation of
+    `kernel` in the package's build."""
+    out, fn, frame = [], None, ""
+    for line in _build.library_path(lib).with_suffix(".log").read_text().splitlines():
+        m = re.search(r"Compiling entry function '(\S+)'", line)
+        if m:
+            fn, frame = m.group(1), ""
+        elif "stack frame" in line:
+            frame = line.split(":", 1)[-1].strip()
+        elif "Used" in line and fn and kernel in fn:
+            out.append(f"{fn.split(kernel, 1)[1][:16]}: {line.split(':', 1)[-1].strip()}, {frame}")
+    return "; ".join(out)
+
+
+def using(module, lib: ctypes.CDLL, call):
+    """`call()` with `module`'s wrappers bound to `lib`."""
+    saved = module._lib
+    module._lib = lambda: lib
+    try:
+        return call()
+    finally:
+        module._lib = saved
+
+
+def events_ms(call, iters: int = 5) -> float:
+    for _ in range(2):
+        call()
+    torch.cuda.synchronize()
+    t0, t1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    t0.record()
+    for _ in range(iters):
+        call()
+    t1.record()
+    torch.cuda.synchronize()
+    return t0.elapsed_time(t1) / iters
+
+
+def _same(a, b) -> bool:
+    a, b = (a if isinstance(a, tuple) else (a,)), (b if isinstance(b, tuple) else (b,))
+    return all(torch.equal(x.to(torch.int64) if not x.is_floating_point() else x,
+                           y.to(torch.int64) if not y.is_floating_point() else y)
+               for x, y in zip(a, b))
+
+
+def measure(kernel: str, probe: ctypes.CDLL, label: str, call, occ=None) -> None:
+    """Time `call` on the package's build, run it once on `probe`, hold the
+    outputs equal and print the spans."""
+    module, names = KERNELS[kernel][1], KERNELS[kernel][2]
+    ms = events_ms(call)
+    want = call()
+    buf = (ctypes.c_ulonglong * SLOTS)()
+    probe.vz_probe_read(buf)
+    got = using(module, probe, call)
+    torch.cuda.synchronize()
+    probe.vz_probe_read(buf)
+    if not _same(got, want):
+        raise SystemExit(f"kernel_spans: {label}: the instrumented kernel disagrees")
+    n = max(buf[SLOTS - 1], 1)
+    spans = ", ".join(f"{nm} {buf[i] / n:,.1f}" for i, nm in enumerate(names))
+    line = f"{label}: {ms:.3f} ms; {n} spans; mean cycles: {spans}"
+    if occ is not None:
+        blocks, threads = ctypes.c_int(), ctypes.c_int()
+        probe.vz_probe_occupancy.argtypes = [ctypes.c_int] * 3 + [ctypes.c_void_p] * 2
+        err = probe.vz_probe_occupancy(*occ, ctypes.byref(blocks), ctypes.byref(threads))
+        if err:
+            raise SystemExit(f"kernel_spans: occupancy query failed ({err})")
+        line += f"; {blocks.value} blocks of {threads.value} threads resident per SM"
+    print(line, flush=True)
+
+
+def eedi3_line(probe, g, dev) -> None:
+    rows = [_pad_rows(torch.rand((FRAMES, 540, W), generator=g, device=dev)).contiguous()
+            for _ in range(4)]
+    mask = torch.rand((FRAMES, 540, W), generator=g, device=dev) > 0.3
+    for label, variant, call in (
+            ("B8", 0, lambda: ke.eedi3_fused(*rows, W, MDIS, NRAD, *EEDI3_COEFS, None)),
+            ("B8 with mclip", 1, lambda: ke.eedi3_fused(*rows, W, MDIS, NRAD, *EEDI3_COEFS, mask)),
+            ("B9 (hp)", 2, lambda: ke.eedi3_fused_hp(*rows, W, MDIS, NRAD, *EEDI3_COEFS))):
+        measure("eedi3_line", probe, label, call, (W, MDIS, variant))
+
+
+def vcheck(probe, g, dev) -> None:
+    src = _build.source("eedi3").read_text()
+    one = src.replace("constexpr int kVcheckCluster = 8;", "constexpr int kVcheckCluster = 1;")
+    if one == src:
+        raise SystemExit("kernel_spans: kVcheckCluster not found")
+    single = build("eedi3", one, "vcheck_single", ke._lib())
+    for hp in (False, True):
+        dr = 2 * MDIS if hp else MDIS
+        vin = (torch.rand((LINES, FRAMES, W), generator=g, device=dev),
+               torch.rand((LINES, 3, FRAMES, W), generator=g, device=dev),
+               torch.randint(-dr, dr + 1, (LINES, 3, FRAMES, W), generator=g, device=dev,
+                             dtype=torch.int32),
+               torch.rand((LINES, FRAMES, W), generator=g, device=dev),
+               torch.rand((FRAMES, W), generator=g, device=dev))
+
+        def call():
+            return ke.vcheck(*vin, W, MDIS, hp, 2, *RCP)
+        measure("vcheck", probe, f"B10 <{int(hp)}> (per line of thread 0)", call)
+        if not torch.equal(using(ke, single, call), call()):
+            raise SystemExit("kernel_spans: B10 on one block per frame disagrees")
+        print(f"B10 <{int(hp)}> on one block per frame (the same ring and values ahead, no "
+              f"halo): {events_ms(lambda: using(ke, single, call)):.3f} ms", flush=True)
+
+
+def h_fixed(probe, g, dev) -> None:
+    x = torch.randint(0, 1 << 16, (64, 1080, 1920), generator=g, device=dev,
+                      dtype=torch.int32).to(torch.uint16)
+    for r, passes in ((13, 1), (13, 5), (23, 1)):
+        measure("h_fixed", probe, f"h_fixed r {r}, {passes} pass(es), 64x1080x1920 u16 "
+                "(per row)", lambda: kb.rt_blur_h(x, r, passes), (1920, r, passes))
+
+
+RUNS = {"eedi3_line": eedi3_line, "vcheck": vcheck, "h_fixed": h_fixed}
+
+
+def main() -> int:
+    chosen = sys.argv[1:] or list(KERNELS)
+    if any(k not in KERNELS for k in chosen):
+        print(__doc__, file=sys.stderr)
+        return 2
+    if not torch.cuda.is_available():
+        print("kernel_spans: no CUDA device", file=sys.stderr)
+        return 1
+    OUT.mkdir(parents=True, exist_ok=True)
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit,clocks.max.sm",
+                          "--format=csv,noheader"], capture_output=True, text=True).stdout
+    print(f"card: {smi.strip()}")
+    dev = torch.device("cuda", 0)
+    g = torch.Generator(device=dev).manual_seed(0)
+    _build.build(*{KERNELS[k][0] for k in chosen})
+    for kernel in chosen:
+        lib, module = KERNELS[kernel][:2]
+        probe = build(lib, instrument(kernel, _build.source(lib).read_text()),
+                      f"{kernel}_probe", module._lib())
+        print(f"{kernel} registers:", registers(lib, f"{kernel}_kernel"), flush=True)
+        RUNS[kernel](probe, g, dev)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -23,7 +23,11 @@
 // 3.35 TB/s), so the designs keep loads coalesced across a warp and keep
 // the running state in registers or shared memory.  The TPU kernels' bf16
 // band matmuls, byte splits and u32 limbs are not needed: Hopper has native
-// int32/int64 arithmetic.
+// int32/int64 arithmetic.  h_fixed's first design, one warp per row and a
+// prefix sum built 32 values at a time by a chain of dependent shuffles
+// (62 steps per 1920-wide row and pass), was held by that chain's latency,
+// not by its work; it now cuts each row into one segment per thread of a
+// block, so the only scan is one per row and pass (see h_fixed_kernel).
 //
 // Plain C interface, loaded with ctypes.  Every entry launches on the given
 // stream, does not synchronise, allocates nothing, and returns
@@ -32,15 +36,21 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include <mutex>
+#include <type_traits>
+#include <vector>
+
 namespace {
 
 constexpr int kChunk = 8;        // rows loaded ahead per step of a column walk
 constexpr int kColThreads = 128; // threads per block of a column kernel
 constexpr int kMaxGridY = 65535;
-// h_fixed: the most dynamic shared memory a Hopper block may take, and the
-// grid of the global-scratch variant (4 warps per block, 2 blocks per SM)
+// h_fixed: samples per segment, the most threads per block, the most
+// dynamic shared memory a Hopper block may take, and the grid of the
+// global-scratch variant (2 blocks per SM)
+constexpr int kSeg = 8;
+constexpr int kMaxRowThreads = 1024;
 constexpr size_t kMaxSmemBytes = 232448;
-constexpr int kScratchWarps = 4;
 constexpr long long kScratchBlocks = 264;
 
 __device__ __forceinline__ int mirror_dup(int k, int n) {
@@ -124,64 +134,240 @@ __global__ void v_fixed_kernel(const T* in, T* out, T* scratch, int n, int h,
   }
 }
 
-// One warp per row.  Each pass builds the exclusive prefix sum P of the
-// mirror-padded row (w + 2r values) in shared memory with warp scans, then
-// W(x) = P[x+2r+1] - P[x] and the fixed-point output.  P is uint32 and wraps;
-// a difference is exact while the window sum stays below 2^32, which the
-// wrapper guarantees (r < 32768).  Passes after the first read the previous
-// pass's row from `xs` in shared memory, so all passes cost one read and one
-// write of device memory.  A row too long for shared memory (kGlobal) keeps
-// P and xs in the global buffer `gscratch` instead, one slice per warp of
-// the grid; the arithmetic is the same.  The variants are separate
-// instantiations so that the shared one keeps its shared-memory loads.
+// h_fixed's shape for a row of w samples and radius r: the mirror-padded
+// row of L = w + 2r samples is cut into U = threads * rounds segments of
+// kSeg samples; a block of `threads` threads (a multiple of 32, at most
+// kMaxRowThreads) takes one segment per thread in each of `rounds` rounds.
+// Sample q (segment q / 8, element q % 8) sits at (q % 8) * U + q / 8 of a
+// row buffer, so a warp's 32 segments meet no bank conflict, whichever
+// element each reads; buffers hold 8U samples (0 past L).
+struct HShape {
+  int threads, rounds;
+  __host__ __device__ int units() const { return threads * rounds; }
+  // two row buffers, the segment prefixes and the warps' totals
+  __host__ __device__ size_t block_words() const {
+    return 2 * (size_t)kSeg * units() + units() + 1 + 32;
+  }
+};
+
+HShape h_shape(int w, int r) {
+  const int segs = (w + 2 * r + kSeg - 1) / kSeg;
+  HShape h;
+  h.threads = segs < kMaxRowThreads ? (segs + 31) / 32 * 32 : kMaxRowThreads;
+  h.rounds = (segs + h.threads - 1) / h.threads;
+  return h;
+}
+
+// Sample q of row `src` mirror-padded by r: the duplicate-edge mirror, or
+// its periodic repeat when r > w (the comptime quirk).
+template <typename T>
+__device__ __forceinline__ uint32_t padded_at(const T* __restrict__ src, int q, int w, int r) {
+  return src[r <= w ? mirror_dup(q - r, w) : mirror_periodic(q - r, w)];
+}
+
+// Eight samples of T as one vector load or store: 16 bytes of uint16, 8
+// of uint8.
+template <typename T>
+struct Chunk {
+  using V = typename std::conditional<sizeof(T) == 2, uint4, uint2>::type;
+  static __device__ __forceinline__ uint32_t get(const V& v, int i) {
+    const uint32_t word = reinterpret_cast<const uint32_t*>(&v)[i * sizeof(T) / 4];
+    return sizeof(T) == 2 ? (word >> (16 * (i & 1))) & 0xffffu : (word >> (8 * (i & 3))) & 0xffu;
+  }
+  static __device__ __forceinline__ V pack(const uint32_t* o) {
+    V v;
+    uint32_t* words = reinterpret_cast<uint32_t*>(&v);
+#pragma unroll
+    for (int j = 0; j < (int)(sizeof(V) / 4); ++j) {
+      words[j] = sizeof(T) == 2 ? o[2 * j] | (o[2 * j + 1] << 16)
+                                : o[4 * j] | (o[4 * j + 1] << 8) | (o[4 * j + 2] << 16) |
+                                      (o[4 * j + 3] << 24);
+    }
+    return v;
+  }
+};
+
+// The fixed-point output of window sum wx, cast to the plane's type: with
+// k0 = C0 - inv2*W0, (C0 + inv2*(wx - W0)) >> 16 is (k0 + inv2*wx) >> 16,
+// the same int64 for every wx < 2^32, and one 32x32->64 multiply-add.
+template <typename T>
+__device__ __forceinline__ uint32_t fixed_out_u(long long k0, uint32_t inv2, uint32_t wx) {
+  return (T)(int)((k0 + (long long)((unsigned long long)inv2 * wx)) >> 16);
+}
+
+// One block per row at a time, a persistent grid striding over the rows.
+// The mirror-padded row sits in shared memory (HShape's layout), written
+// once from device memory: its interior by 16-byte (uint8: 8-byte) loads
+// where the row allows them, the pad by mirrored scalar loads; the next
+// row's loads are in flight while this row's passes run.  Each pass cuts
+// the padded row into segments of 8 samples, one per thread and round:
+// - thread k sums its segment;
+// - one block scan of the segment totals (a warp scan of 32 totals, then
+//   the warps' totals) gives E[u] = P(8u), the exclusive prefix sum P of
+//   the padded row at each segment's start;
+// - the thread owns the outputs x in [8u, 8u + 8): W(8u) = P(8u + 2r + 1) -
+//   E[u], where P at any q is E[q / 8] plus fewer than 8 samples; then
+//   W(x + 1) = W(x) + row[x + 2r + 1] - row[x] slides along the segment,
+//   its 16 reads issued first (at offsets that are the same for every
+//   thread, so the warp's reads meet no bank conflict).
+// So no serial chain longer than a segment, one scan per row and pass, and
+// no shuffle scan per 32 values.  A pass writes its output into the other
+// row buffer, mirror-padded, so passes ping-pong between two row buffers;
+// the last pass writes its eight outputs to device memory as one vector
+// store.  All passes cost one read and one write of device memory.  P is
+// uint32 and wraps; a difference is exact while the window sum stays below
+// 2^32, which the wrapper guarantees (r < 32768).  Rows too long for shared
+// memory (kGlobal) keep the same buffers in the global scratch `gscratch`,
+// one slice per block of the grid; the arithmetic is the same.
 template <typename T, bool kGlobal>
-__global__ void h_fixed_kernel(const T* in, T* out, long long rows, int w, int r,
-                               int passes, long long inv, long long inv2,
-                               uint32_t* gscratch) {
+__global__ void __launch_bounds__(kMaxRowThreads)
+    h_fixed_kernel(const T* __restrict__ in, T* __restrict__ out, long long rows, int w,
+                   int r, int passes, HShape hs, bool vec, long long inv, int inv2,
+                   uint32_t* gscratch) {
+  using V = typename Chunk<T>::V;
   extern __shared__ uint32_t smem[];
-  const int lane = threadIdx.x & 31;
-  const int warp = threadIdx.x >> 5;
-  const int warps = blockDim.x >> 5;
-  const int padded = w + 2 * r;
-  const int per_warp = padded + 1 + (passes > 1 ? w : 0);
-  uint32_t* P = kGlobal ? gscratch + ((size_t)blockIdx.x * warps + warp) * per_warp
-                       : smem + (size_t)warp * per_warp;
-  uint32_t* xs = P + padded + 1;
-  for (long long row = (long long)blockIdx.x * warps + warp; row < rows;
-       row += (long long)gridDim.x * warps) {
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5, nt = blockDim.x;
+  const int U = hs.units(), L = w + 2 * r;
+  uint32_t* A = kGlobal ? gscratch + (size_t)blockIdx.x * hs.block_words() : smem;
+  uint32_t* B = A + kSeg * U;
+  uint32_t* E = B + kSeg * U;  // U + 1 segment prefixes
+  uint32_t* wsum = E + U + 1;  // the warps' totals
+  auto at = [U](int q) { return (q & 7) * U + (q >> 3); };
+  // both buffers read 0 past the padded row
+  for (int q = L + tid; q < kSeg * U; q += nt) A[at(q)] = B[at(q)] = 0;
+  // where the lead (x + 2r + 1) and the output (x + r) of element i of
+  // segment u sit: u plus these
+  int off_lead[kSeg], off_out[kSeg];
+#pragma unroll
+  for (int i = 0; i < kSeg; ++i) {
+    off_lead[i] = at(2 * r + 1 + i);
+    off_out[i] = at(r + i);
+  }
+  const int chunks = vec ? w / kSeg : 0;
+  V pre;
+  long long row = blockIdx.x;
+  if (row < rows && tid < chunks) pre = reinterpret_cast<const V*>(in + row * w)[tid];
+  for (; row < rows; row += gridDim.x) {
     const T* src = in + row * w;
+    __syncthreads();  // the previous row's last reads of A are done
+    if (vec) {
+      // chunk t holds x = 8t .. 8t + 7, q = r + x: segment t, offsets off_out
+      if (tid < chunks) {
+#pragma unroll
+        for (int i = 0; i < kSeg; ++i) A[tid + off_out[i]] = Chunk<T>::get(pre, i);
+      }
+      for (int t = tid + nt; t < chunks; t += nt) {
+        const V v = reinterpret_cast<const V*>(src)[t];
+#pragma unroll
+        for (int i = 0; i < kSeg; ++i) A[t + off_out[i]] = Chunk<T>::get(v, i);
+      }
+      for (int i = tid; i < 2 * r; i += nt) {
+        const int q = i < r ? i : i + w;
+        A[at(q)] = padded_at(src, q, w, r);
+      }
+    } else {
+      for (int q = tid; q < L; q += nt) A[at(q)] = padded_at(src, q, w, r);
+    }
+    __syncthreads();
+    const long long next = row + gridDim.x;
+    if (next < rows && tid < chunks) pre = reinterpret_cast<const V*>(in + next * w)[tid];
+    uint32_t* cur = A;
+    uint32_t* nxt = B;
     for (int p = 0; p < passes; ++p) {
+      const bool last = p == passes - 1;
       uint32_t carry = 0;
-      for (int q0 = 0; q0 < padded; q0 += 32) {
-        const int q = q0 + lane;
-        uint32_t v = 0;
-        if (q < padded) {
-          const int m = r <= w ? mirror_dup(q - r, w) : mirror_periodic(q - r, w);
-          v = p == 0 ? (uint32_t)src[m] : xs[m];
-        }
+      for (int a = 0; a < hs.rounds; ++a) {
+        const int u = a * nt + tid;
+        uint32_t inc = 0;
+#pragma unroll
+        for (int i = 0; i < kSeg; ++i) inc += cur[i * U + u];
 #pragma unroll
         for (int o = 1; o < 32; o <<= 1) {
-          const uint32_t t = __shfl_up_sync(0xffffffffu, v, o);
-          if (lane >= o) v += t;
+          const uint32_t t = __shfl_up_sync(0xffffffffu, inc, o);
+          if (lane >= o) inc += t;
         }
-        if (q < padded) P[q + 1] = carry + v;
-        carry += __shfl_sync(0xffffffffu, v, 31);
+        if (lane == 31) wsum[warp] = inc;
+        __syncthreads();
+        for (int j = 0; j < warp; ++j) inc += wsum[j];
+        E[u + 1] = carry + inc;
+        if (u == 0) E[0] = 0;
+        __syncthreads();
+        carry = E[(a + 1) * nt];
       }
-      if (lane == 0) P[0] = 0;
-      __syncwarp();
-      const uint32_t w0 = P[2 * r + 1] - P[0];
-      const long long c0 = fixed_c0(w0, inv);
-      const bool last = p == passes - 1;
-      for (int x = lane; x < w; x += 32) {
-        const uint32_t wx = P[x + 2 * r + 1] - P[x];
-        const T o = (T)fixed_out(c0, inv2, (long long)wx - (long long)w0);
-        if (last) {
-          out[row * w + x] = o;
+      // P(q): the segment's prefix and the samples from its start to q
+      auto prefix = [&](int q) {
+        const int j = q >> 3, n = q & 7;
+        uint32_t v = E[j];
+#pragma unroll
+        for (int i = 0; i < kSeg - 1; ++i) v += i < n ? cur[i * U + j] : 0u;
+        return v;
+      };
+      const uint32_t w0 = prefix(2 * r + 1);  // W(0); P(0) = 0
+      const long long k0 = fixed_c0(w0, inv) - (long long)inv2 * w0;
+      for (int a = 0; a < hs.rounds; ++a) {
+        const int u = a * nt + tid, x0 = kSeg * u;
+        if (x0 >= w) break;
+        uint32_t wx = prefix(x0 + 2 * r + 1) - E[u];
+        if (x0 + kSeg <= w) {
+          // a whole segment: its 16 reads first, then the sliding sum
+          uint32_t lead[kSeg], trail[kSeg], o[kSeg];
+#pragma unroll
+          for (int i = 0; i < kSeg; ++i) {
+            lead[i] = cur[u + off_lead[i]];
+            trail[i] = cur[i * U + u];
+          }
+#pragma unroll
+          for (int i = 0; i < kSeg; ++i) {
+            o[i] = fixed_out_u<T>(k0, inv2, wx);
+            wx += lead[i] - trail[i];
+          }
+          if (last && vec) {
+            reinterpret_cast<V*>(out + row * w)[u] = Chunk<T>::pack(o);
+          } else if (last) {
+#pragma unroll
+            for (int i = 0; i < kSeg; ++i) out[row * w + x0 + i] = (T)o[i];
+          } else {
+#pragma unroll
+            for (int i = 0; i < kSeg; ++i) nxt[u + off_out[i]] = o[i];
+            if (r <= w && (x0 < r || x0 + kSeg > w - r)) {
+              // the pad positions that mirror these outputs (the periodic
+              // quirk fills its pad after a barrier)
+#pragma unroll
+              for (int i = 0; i < kSeg; ++i) {
+                const int x = x0 + i;
+                if (x < r) nxt[at(r - 1 - x)] = o[i];
+                if (x >= w - r) nxt[at(2 * w + r - 1 - x)] = o[i];
+              }
+            }
+          }
         } else {
-          xs[x] = o;
+          // the row's last, partial segment: one output at a time
+          for (int x = x0; x < w; ++x) {
+            const uint32_t o = fixed_out_u<T>(k0, inv2, wx);
+            if (last) {
+              out[row * w + x] = (T)o;
+            } else {
+              nxt[at(x + r)] = o;
+              if (r <= w && x < r) nxt[at(r - 1 - x)] = o;
+              if (r <= w && x >= w - r) nxt[at(2 * w + r - 1 - x)] = o;
+            }
+            wx += cur[at(x + 2 * r + 1)] - cur[at(x)];
+          }
         }
       }
-      __syncwarp();
+      if (!last) {
+        __syncthreads();
+        if (r > w) {
+          for (int i = tid; i < 2 * r; i += nt) {
+            const int q = i < r ? i : i + w;
+            nxt[at(q)] = nxt[at(r + mirror_periodic(q - r, w))];
+          }
+          __syncthreads();
+        }
+      }
+      uint32_t* t = cur;
+      cur = nxt;
+      nxt = t;
     }
   }
 }
@@ -254,47 +440,82 @@ int launch_v_fixed(const void* in, void* out, void* scratch, int n, int h, int w
   return (int)cudaGetLastError();
 }
 
-size_t h_fixed_words_per_warp(int w, int r, int passes) {
-  return (size_t)w + 2 * r + 1 + (passes > 1 ? w : 0);
+// Words of global scratch h_fixed needs for these rows: 0 when a block's
+// buffers fit its shared memory, else one slice per block of a grid of at
+// most kScratchBlocks.
+long long h_fixed_scratch_words(long long rows, int w, int r) {
+  const size_t words = h_shape(w, r).block_words();
+  if (words * sizeof(uint32_t) <= kMaxSmemBytes) return 0;
+  return (rows < kScratchBlocks ? rows : kScratchBlocks) * (long long)words;
 }
 
-// Words of global scratch h_fixed needs for these rows: 0 when one warp's
-// row fits in a block's shared memory (the path every row took before the
-// scratch existed), else one slice per warp of a grid of kScratchBlocks.
-long long h_fixed_scratch_words(long long rows, int w, int r, int passes) {
-  const size_t per_warp = h_fixed_words_per_warp(w, r, passes);
-  if (per_warp * sizeof(uint32_t) <= kMaxSmemBytes) return 0;
-  long long blocks = (rows + kScratchWarps - 1) / kScratchWarps;
-  if (blocks > kScratchBlocks) blocks = kScratchBlocks;
-  return blocks * kScratchWarps * (long long)per_warp;
+// The blocks of `kernel` (`threads` threads, `bytes` of dynamic shared
+// memory) that stay resident on the current device, at least one per SM;
+// queried once per (device, kernel, threads, bytes).  The kernel is allowed
+// the most dynamic shared memory any of its queries asked for, so every
+// shape queried before stays launchable.
+cudaError_t resident_blocks(const void* kernel, int threads, size_t bytes, long long* blocks) {
+  struct Seen {
+    int dev;
+    const void* kernel;
+    int threads;
+    size_t bytes;
+    long long blocks;
+  };
+  static std::mutex mu;
+  static std::vector<Seen> seen;
+  int dev;
+  cudaError_t e = cudaGetDevice(&dev);
+  if (e != cudaSuccess) return e;
+  std::lock_guard<std::mutex> lock(mu);
+  size_t allow = bytes;
+  for (const Seen& s : seen) {
+    if (s.dev != dev || s.kernel != kernel) continue;
+    if (s.threads == threads && s.bytes == bytes) {
+      *blocks = s.blocks;
+      return cudaSuccess;
+    }
+    if (s.bytes > allow) allow = s.bytes;
+  }
+  int sms, per_sm;
+  e = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)allow);
+  if (e == cudaSuccess) e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (e == cudaSuccess) {
+    e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, threads, bytes);
+  }
+  if (e != cudaSuccess) return e;
+  *blocks = (long long)sms * (per_sm > 0 ? per_sm : 1);
+  seen.push_back({dev, kernel, threads, bytes, *blocks});
+  return cudaSuccess;
 }
 
 template <typename T>
-int launch_h_fixed(const void* in, void* out, void* scratch, long long rows, int w,
-                   int r, int passes, cudaStream_t s) {
+int launch_h_fixed(const void* in, void* out, void* scratch, long long rows, int w, int r,
+                   int passes, cudaStream_t s) {
   long long inv, inv2;
   fixed_constants(r, &inv, &inv2);
-  if (h_fixed_scratch_words(rows, w, r, passes) > 0) {
+  const HShape hs = h_shape(w, r);
+  // vector loads and stores: 8 samples per chunk, rows on 16-byte (uint8:
+  // 8-byte) boundaries
+  const size_t align = 8 * sizeof(T);
+  const bool vec = w % kSeg == 0 && (uintptr_t)in % align == 0 && (uintptr_t)out % align == 0;
+  if (h_fixed_scratch_words(rows, w, r) > 0) {
     if (scratch == nullptr) return (int)cudaErrorInvalidValue;
-    long long blocks = (rows + kScratchWarps - 1) / kScratchWarps;
-    if (blocks > kScratchBlocks) blocks = kScratchBlocks;
-    h_fixed_kernel<T, true><<<(unsigned)blocks, 32 * kScratchWarps, 0, s>>>(
-        (const T*)in, (T*)out, rows, w, r, passes, inv, inv2, (uint32_t*)scratch);
+    const long long blocks = rows < kScratchBlocks ? rows : kScratchBlocks;
+    h_fixed_kernel<T, true><<<(unsigned)blocks, hs.threads, 0, s>>>(
+        (const T*)in, (T*)out, rows, w, r, passes, hs, vec, inv, (int)inv2,
+        (uint32_t*)scratch);
     return (int)cudaGetLastError();
   }
-  const size_t per_warp = h_fixed_words_per_warp(w, r, passes) * sizeof(uint32_t);
-  int warps = 4;
-  while (warps > 1 && per_warp * warps > 200 * 1024) --warps;
-  const size_t bytes = per_warp * warps;
-  if (bytes > 48 * 1024) {
-    const cudaError_t e = cudaFuncSetAttribute(
-        h_fixed_kernel<T, false>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
-    if (e != cudaSuccess) return (int)e;
-  }
-  long long blocks = (rows + warps - 1) / warps;
-  if (blocks > (1LL << 30)) blocks = 1LL << 30;
-  h_fixed_kernel<T, false><<<(unsigned)blocks, 32 * warps, bytes, s>>>(
-      (const T*)in, (T*)out, rows, w, r, passes, inv, inv2, nullptr);
+  // persistent: as many blocks as stay resident, each striding over rows
+  const size_t bytes = hs.block_words() * sizeof(uint32_t);
+  long long blocks;
+  const cudaError_t e = resident_blocks(reinterpret_cast<const void*>(h_fixed_kernel<T, false>),
+                                        hs.threads, bytes, &blocks);
+  if (e != cudaSuccess) return (int)e;
+  if (blocks > rows) blocks = rows;
+  h_fixed_kernel<T, false><<<(unsigned)blocks, hs.threads, bytes, s>>>(
+      (const T*)in, (T*)out, rows, w, r, passes, hs, vec, inv, (int)inv2, nullptr);
   return (int)cudaGetLastError();
 }
 
@@ -321,8 +542,8 @@ int vz_v_fixed(const void* in, void* out, void* scratch, int elem_bytes, int n,
 }
 
 // The uint32 words of scratch vz_h_fixed needs (0: none; pass null).
-long long vz_h_fixed_scratch_words(long long rows, int w, int r, int passes) {
-  return h_fixed_scratch_words(rows, w, r, passes);
+long long vz_h_fixed_scratch_words(long long rows, int w, int r) {
+  return h_fixed_scratch_words(rows, w, r);
 }
 
 int vz_h_fixed(const void* in, void* out, void* scratch, int elem_bytes, long long rows,

@@ -36,10 +36,43 @@
 // write fpath (scratch deltas copied into the freed shared memory first).
 // All threads then interpolate.
 //
-// B10: one block per frame sweeps the interpolated lines in order; the
-// carried updated line lives in shared memory (two buffers, one read and
-// one written per line, a __syncthreads between lines); threads over x.
-// Every gather clamps its column into [0, w-1], as the edge pad does.
+// B10: line li of a frame reads only the line updated just before it
+// (cur), at columns x + o within the reach of x's direction (|dmc|, hp
+// |(dmc + 1) >> 1|, mostly at most mdis); every other input is known
+// before the sweep.  So one frame's sweep runs on a
+// cluster of up to 8 blocks (kVcheckCluster, the portable maximum; 16 for
+// rows too wide for 8): block j owns a slice of about w / 8 columns (240 at
+// 1920; at least mdis wide; one or two per thread) and keeps cur over its
+// slice and a halo of mdis columns on each side in shared memory (two
+// buffers, read and written by turns).  A block sends each column of its
+// two edge strips, as it computes it, into its neighbours' halos with
+// st.async through distributed shared memory; the bytes land on one of the
+// receiver's two mbarriers (by line parity), which its threads wait on
+// before they read cur.  So blocks run in step with their neighbours only,
+// with no cluster-wide barrier and no release fence per line (a release
+// would wait for the line's stores to device memory).  Per line a block
+// then (1) waits for its own copies of the line's inputs and syncs its
+// threads, (2) issues the cp.async copies of line li+ring-1 (dl, d1p, d1n,
+// d2n over the window; cint and the three direction rows over the slice;
+// 16 bytes each where w is a multiple of 4 and the rows are aligned) into
+// a ring of 2-4 stages, (3)
+// computes in registers the line's values that do not need cur (the keep
+// test, the gathers from the other rows, ib, vb, vc, their errors, a2)
+// while its neighbours' strips are in flight, and (4) waits for them and
+// finishes: one or two reads of cur and a dozen f32 operations.  At the
+// bench's 8 frames that is 64 blocks instead of 8.  A gather is needed
+// only where the line is not kept, and there every column it reads lies in
+// [0, w-1] (the reference's clamp never acts).  Directions mostly reach at
+// most mdis columns (hp 2*mdis half-pels), but B9's backtrack walks past
+// its directions where every cost saturates (ties keep the -2 candidate),
+// so a direction may reach any column.  Before the sweep each block marks
+// the lines whose directions in its slice reach past the halo, and ORs
+// every block's marks through distributed shared memory.  On a marked line
+// a block first finishes its other columns; then every block passes one
+// cluster barrier (each block's line li-1 is then in `out`), and the
+// columns that reach past the halo read their inputs and cur from device
+// memory.  Unmarked lines take no such barrier, and the main loop keeps no
+// state for far columns but their kind.
 //
 // Bit-exactness.  The file builds with -fmad=false, so every product and
 // sum rounds to f32 on its own, in the reference's order, as the plain
@@ -64,16 +97,24 @@
 // warp's chain of w-1 dependent steps of a few tens of instructions each,
 // which compete with the producers for the SM's schedulers;
 // Shape::min_blocks asks for 6 (hp 3)
-// resident lines per SM, to hide each other's latency.  B10 reads 9 f32/int rows per interpolated pixel and
-// writes one: bytes, with only B blocks in flight.
+// resident lines per SM, to hide each other's latency.  B10 reads 9 f32/int
+// rows per interpolated pixel and writes one: bytes.  Its first design, one
+// 512-thread block per frame, sat at 27-39x that bound: 8 blocks on 132
+// SMs, each line waiting on its own loads (about 9,500 cycles per line,
+// two thirds of them in the loads and gathers).
 //
 // Plain C interface, loaded with ctypes.  Every entry launches on the given
 // stream, does not synchronise, allocates nothing, and returns
 // cudaGetLastError() (0 on success).
 
+#include <cooperative_groups.h>
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
+
+#include <initializer_list>
+
+namespace cg = cooperative_groups;
 
 namespace {
 
@@ -85,7 +126,14 @@ constexpr size_t kSmemBudget = 48 * 1024;  // deltas in shared memory up to this
 // named barriers (0 is __syncthreads'): cost buffer 0/1 full, 0/1 empty,
 // and the producers' own
 constexpr int kBarFull = 1, kBarEmpty = 3, kBarProd = 5;
-constexpr int kVcheckThreads = 512;
+// B10: threads per block and columns per thread at most, blocks per frame
+// (the portable cluster size) and ring stages at most, and the shared
+// memory a block may take
+constexpr int kVcheckMaxThreads = 1024;
+constexpr int kVcheckCols = 2;
+constexpr int kVcheckCluster = 8;
+constexpr int kVcheckRing = 4;
+constexpr size_t kMaxSmemBytes = 232448;
 
 // The chunk width, the delta bits and deltas per word (a chunk holds whole
 // words), the producer warps (warp prod runs the DP), and the pitch of a
@@ -740,108 +788,494 @@ int launch_k(const float* r3p, const float* r1p, const float* r1n, const float* 
   return (int)cudaErrorInvalidValue;
 }
 
-__device__ __forceinline__ int clampi(int v, int lo, int hi) {
-  return v < lo ? lo : (v > hi ? hi : v);
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;" ::: "memory");
 }
 
+// Wait until at most `pending` (0-2) of this thread's newest groups are in
+// flight.
+__device__ __forceinline__ void cp_async_wait_pending(int pending) {
+  if (pending <= 0) asm volatile("cp.async.wait_group 0;" ::: "memory");
+  else if (pending == 1) asm volatile("cp.async.wait_group 1;" ::: "memory");
+  else asm volatile("cp.async.wait_group 2;" ::: "memory");
+}
+
+// The cluster's barrier, split: arrive publishes this thread's stores
+// (shared memory of any block of the cluster, and device memory), wait
+// sees every other thread's.
+__device__ __forceinline__ void cluster_arrive() {
+  asm volatile("barrier.cluster.arrive.release;" ::: "memory");
+}
+__device__ __forceinline__ void cluster_wait() {
+  asm volatile("barrier.cluster.wait.acquire;" ::: "memory");
+}
+
+__device__ __forceinline__ void cp_async16(float* dst, const float* src) {
+  const unsigned d = (unsigned)__cvta_generic_to_shared(dst);
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;" ::"r"(d), "l"(src) : "memory");
+}
+
+__device__ __forceinline__ uint32_t smem_addr(const void* p) {
+  return (uint32_t)__cvta_generic_to_shared(p);
+}
+
+// The same shared-memory word in block `rank` of the cluster.
+__device__ __forceinline__ uint32_t cluster_addr(uint32_t addr, int rank) {
+  uint32_t d;
+  asm volatile("mapa.shared::cluster.u32 %0, %1, %2;" : "=r"(d) : "r"(addr), "r"(rank));
+  return d;
+}
+
+__device__ __forceinline__ void mbar_init(uint32_t bar, int count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;" ::"r"(bar), "r"(count) : "memory");
+}
+
+// One arrival that also expects `bytes` more to land on the barrier.
+__device__ __forceinline__ void mbar_expect(uint32_t bar, int bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;" ::"r"(bar), "r"(bytes)
+               : "memory");
+}
+
+// Wait until the barrier's phase of this parity is complete; what the
+// completing stores wrote (from any block of the cluster) is then seen.
+__device__ __forceinline__ void mbar_wait(uint32_t bar, int parity) {
+  uint32_t done = 0;
+  while (!done) {
+    asm volatile(
+        "{\n.reg .pred p;\n"
+        "mbarrier.try_wait.parity.acquire.cluster.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n}"
+        : "=r"(done)
+        : "r"(bar), "r"(parity)
+        : "memory");
+  }
+}
+
+// Store v at the cluster address `dst` and count its 4 bytes on the
+// cluster barrier address `bar` (both in the same block).
+__device__ __forceinline__ void st_async(uint32_t dst, float v, uint32_t bar) {
+  asm volatile("st.async.shared::cluster.mbarrier::complete_tx::bytes.b32 [%0], %1, [%2];" ::"r"(
+                   dst),
+               "r"(__float_as_uint(v)), "r"(bar)
+               : "memory");
+}
+
+// B10's split of a frame: a cluster of `blocks` blocks of `threads`
+// threads, each owning `slice` columns (`cols` per thread, one up to
+// kVcheckMaxThreads columns, else two: the kernel's kCols) plus a halo
+// of `halo` on each side, a ring of `ring` stages of lines, and 16-byte
+// copies (`vec`: w, slice and halo multiples of 4), and `marks` words of
+// one bit per line (the lines that reach past the halo).
+struct VcheckPlan {
+  int blocks, threads, slice, halo, ring, marks, cols;
+  bool vec;
+  __host__ __device__ int win() const { return slice + 2 * halo; }
+  // one stage: the rows dl, d1p, d1n, d2n over the window, cint and the
+  // directions dmp, dmc, dmn over the slice
+  __host__ __device__ int stage() const { return 4 * win() + 4 * slice; }
+  // the two halo barriers, cur and nxt, the ring, and the block's marks
+  // and the cluster's
+  size_t bytes() const {
+    return 16 + sizeof(float) * (2 * (size_t)win() + (size_t)ring * stage() + 2 * (size_t)marks);
+  }
+};
+
+// The farthest column from x that a line's gathers of direction d reach
+// (hp: d in half-pels).
 template <bool kHp>
-__global__ void __launch_bounds__(kVcheckThreads)
+__device__ __forceinline__ int vcheck_reach(int d) {
+  return kHp ? ((d & 1) == 0 ? abs(d >> 1) : max(abs(d >> 1), abs((d + 1) >> 1))) : abs(d);
+}
+
+// What a line's column needs of the line updated before it: `kind` 0 (kept:
+// cint), 1 (it and vt from g = cur[x + o0]), 2 (hp, odd direction: g =
+// cur[x + o0] + cur[x + o1]), the rest computed ahead; or 3 (a direction
+// past the halo: all of it from device memory, after the line's others).
+struct VcheckPre {
+  int kind, o0, o1;
+  float p1, p2, p3, d1p, vc, e1, e3, a2, dlx, ci;
+};
+
+// The blend of an interpolated pixel from its four errors (mode 1: min,
+// 2: mean, 3: max of each pair), as the reference orders it.
+__device__ __forceinline__ float vcheck_blend(float e0, float e1, float e2, float e3,
+                                              float a2, float dlx, float ci, int mode,
+                                              float rcp0, float rcp1) {
+  float m0, m1;
+  if (mode == 1) {
+    m0 = fminf(e0, e1);
+    m1 = fminf(e2, e3);
+  } else if (mode == 2) {
+    m0 = (e0 + e1) * 0.5f;
+    m1 = (e2 + e3) * 0.5f;
+  } else {
+    m0 = fmaxf(e0, e1);
+    m1 = fmaxf(e2, e3);
+  }
+  const float a0 = m0 * rcp0;
+  const float a1 = m1 * rcp1;
+  const float a = fminf(fmaxf(a0, fmaxf(a1, a2)), 1.0f);
+  return (1.0f - a) * dlx + a * ci;
+}
+
+// A column's values that do not need cur, from the rows DL, D1P, D1N, D2N
+// of its line indexed from xi (its ring stage, or device memory).
+template <bool kHp>
+__device__ __forceinline__ void vcheck_gather(VcheckPre& v, int dmc, const float* DL,
+                                              const float* D1P, const float* D1N,
+                                              const float* D2N, int xi, float rcp2, float vt2) {
+  const float dlx = DL[xi], d1p = D1P[xi], d1n = D1N[xi];
+  const float vc = fabsf(dlx - d1p) + fabsf(dlx - d1n);
+  float ib, vb;
+  v.kind = 1;
+  v.o0 = dmc;
+  if (kHp) {
+    const int d20 = dmc >> 1, d21 = (dmc + 1) >> 1;
+    const float a1 = D1P[xi + d20], a2 = DL[xi + d20];
+    const float b0 = DL[xi - d20], b1 = D1N[xi - d20], b2 = D2N[xi - d20];
+    v.o0 = d20;
+    if ((dmc & 1) == 0) {
+      ib = (a2 + b2) * 0.5f;
+      vb = fabsf(b2 - b1) + fabsf(b0 - b1);
+      v.p1 = b0;
+      v.p2 = a1;
+      v.p3 = fabsf(a2 - a1);
+    } else {
+      const float s1ps = a1 + D1P[xi + d21], pa0 = a2 + DL[xi + d21];
+      const float ps0 = b0 + DL[xi - d21], s1ns = b1 + D1N[xi - d21];
+      const float s2ns = b2 + D2N[xi - d21];
+      ib = (pa0 + s2ns) * 0.25f;
+      vb = (fabsf(s2ns - s1ns) + fabsf(ps0 - s1ns)) * 0.5f;
+      v.kind = 2;
+      v.o1 = d21;
+      v.p1 = ps0;
+      v.p2 = s1ps;
+      v.p3 = fabsf(pa0 - s1ps);
+    }
+  } else {
+    const float gu1 = D1P[xi + dmc], gu2 = DL[xi + dmc];
+    const float gd0 = DL[xi - dmc], gd1 = D1N[xi - dmc], gd2 = D2N[xi - dmc];
+    ib = (gu2 + gd2) * 0.5f;
+    vb = fabsf(gd2 - gd1) + fabsf(gd0 - gd1);
+    v.p1 = gd0;
+    v.p2 = gu1;
+    v.p3 = fabsf(gu2 - gu1);
+  }
+  const int dabs = kHp ? abs(dmc) >> 1 : abs(dmc);
+  v.d1p = d1p;
+  v.vc = vc;
+  v.e1 = fabsf(ib - d1n);
+  v.e3 = fabsf(vb - vc);
+  v.a2 = fmaxf((vt2 - (float)dabs) * rcp2, 0.0f);
+  v.dlx = dlx;
+}
+
+// An interpolated pixel from its values computed ahead and the one or two
+// values g, g1 of the line updated before it.
+template <bool kHp>
+__device__ __forceinline__ float vcheck_finish(const VcheckPre& v, float g, float g1, int mode,
+                                               float rcp0, float rcp1) {
+  float it, vt;
+  if (kHp && v.kind == 2) {
+    g = g + g1;
+    it = (g + v.p1) * 0.25f;
+    vt = (fabsf(g - v.p2) + v.p3) * 0.5f;
+  } else {
+    it = (g + v.p1) * 0.5f;
+    vt = fabsf(g - v.p2) + v.p3;
+  }
+  return vcheck_blend(fabsf(it - v.d1p), v.e1, fabsf(vt - v.vc), v.e3, v.a2, v.dlx, v.ci,
+                      mode, rcp0, rcp1);
+}
+
+// Column x of a line with a direction dmc past the halo, from its rows
+// dl, nb (d1p, d1n, d2n st apart) and the line updated before it, `prev`,
+// in device memory.
+template <bool kHp>
+__device__ __forceinline__ float vcheck_far(const float* dl, const float* nb, size_t st,
+                                         const float* prev, int x, int dmc, float ci, int mode,
+                                         float rcp0, float rcp1, float rcp2, float vt2) {
+  VcheckPre v;
+  v.ci = ci;
+  vcheck_gather<kHp>(v, dmc, dl, nb, nb + st, nb + 2 * st, x, rcp2, vt2);
+  return vcheck_finish<kHp>(v, __ldcg(prev + x + v.o0),
+                            kHp && v.kind == 2 ? __ldcg(prev + x + v.o1) : 0.0f, mode, rcp0,
+                            rcp1);
+}
+
+// B10: one cluster per frame sweeps the interpolated lines in order (the
+// design is in the header).  dl, cint, out: (n_off, B, w); nb, dm: (n_off,
+// 3, B, w); init: (B, w).  kCols: columns per thread.
+template <bool kHp, int kCols>
+__global__ void __launch_bounds__(kVcheckMaxThreads)
     vcheck_kernel(const float* __restrict__ dl, const float* __restrict__ nb,
                   const int32_t* __restrict__ dm, const float* __restrict__ cint,
                   const float* __restrict__ init, float* __restrict__ out, int n_off,
-                  int nbatch, int w, int mode, float rcp0, float rcp1, float rcp2,
-                  float vt2) {
-  extern __shared__ float carry[];
-  float* cur = carry;  // the line the previous iteration updated (pd-2)
-  float* nxt = carry + w;
-  const int b = blockIdx.x;
-  for (int x = threadIdx.x; x < w; x += kVcheckThreads) cur[x] = init[(size_t)b * w + x];
-  __syncthreads();
+                  int nbatch, int w, int mode, float rcp0, float rcp1, float rcp2, float vt2,
+                  VcheckPlan pl) {
+  extern __shared__ __align__(16) float sm[];
+  cg::cluster_group cluster = cg::this_cluster();
+  const int j = (int)cluster.block_rank();
+  const int b = blockIdx.x / pl.blocks;
+  const int nt = blockDim.x, tid = threadIdx.x;
+  const int H = pl.halo, WW = pl.win(), SW = pl.stage(), Sc = pl.slice;
+  const int x0 = j * Sc, x1 = min(x0 + Sc, w);
+  const int base = x0 - H;  // the column of window index 0
+  const int lo = max(base, 0), hi = min(x1 + H, w);
+  // the halo barriers (line l's halo lands on bar[l % 2]), then cur and
+  // nxt over the window, then the ring
+  const uint32_t bar0 = smem_addr(sm);
+  float* const buf = sm + 4;
+  float* cur = buf;  // the line the previous one updated (pd-2)
+  float* nxt = buf + WW;
+  float* const ring = buf + 2 * WW;
+  const bool has_left = j > 0, has_right = j + 1 < pl.blocks;
+  // the halo bytes each line brings: the left neighbour's last H columns,
+  // the right neighbour's first min(H, its width)
+  const int halo_bytes =
+      4 * ((has_left ? H : 0) + (has_right ? min(H, w - (x0 + Sc)) : 0));
   const size_t st = (size_t)nbatch * w;  // one (B, W) plane
-  for (int li = 0; li < n_off; ++li) {
-    const size_t o1 = (size_t)li * st + (size_t)b * w;
-    const size_t o3 = (size_t)li * 3 * st + (size_t)b * w;
-    const float* DL = dl + o1;
-    const float* CI = cint + o1;
-    const float* D1P = nb + o3;
-    const float* D1N = D1P + st;
-    const float* D2N = D1N + st;
-    const int32_t* DMP = dm + o3;
-    const int32_t* DMC = DMP + st;
-    const int32_t* DMN = DMC + st;
-    for (int x = threadIdx.x; x < w; x += kVcheckThreads) {
-      const int dmc = DMC[x], dmp = DMP[x], dmn = DMN[x];
-      bool keep = dmc == 0;
-      keep |= (max(dmc * dmp, dmc * dmn) < 0) || (dmp == dmn && dmp == 0);
-      const int maxoff = kHp ? ((dmc & 1) == 0 ? abs(dmc >> 1)
-                                               : max(abs(dmc >> 1), abs((dmc + 1) >> 1)))
-                             : abs(dmc);
-      keep |= (x + maxoff >= w) || (x - maxoff < 0);
-      // up stack (d2p, d1p, dl) at x + o, down stack (dl, d1n, d2n) at x - o
-      auto up0 = [&](int o) { return cur[clampi(x + o, 0, w - 1)]; };
-      auto up1 = [&](int o) { return D1P[clampi(x + o, 0, w - 1)]; };
-      auto up2 = [&](int o) { return DL[clampi(x + o, 0, w - 1)]; };
-      auto dn0 = [&](int o) { return DL[clampi(x - o, 0, w - 1)]; };
-      auto dn1 = [&](int o) { return D1N[clampi(x - o, 0, w - 1)]; };
-      auto dn2 = [&](int o) { return D2N[clampi(x - o, 0, w - 1)]; };
-      float it, ib, vt, vb;
-      int dabs;
-      if (kHp) {
-        const int d20 = dmc >> 1, d21 = (dmc + 1) >> 1;
-        const float a0 = up0(d20), a1 = up1(d20), a2 = up2(d20);
-        const float b0 = dn0(d20), b1 = dn1(d20), b2 = dn2(d20);
-        if ((dmc & 1) == 0) {
-          it = (a0 + b0) * 0.5f;
-          ib = (a2 + b2) * 0.5f;
-          vt = fabsf(a0 - a1) + fabsf(a2 - a1);
-          vb = fabsf(b2 - b1) + fabsf(b0 - b1);
-        } else {
-          const float s2ps = a0 + up0(d21), s1ps = a1 + up1(d21), pa0 = a2 + up2(d21);
-          const float ps0 = b0 + dn0(d21), s1ns = b1 + dn1(d21), s2ns = b2 + dn2(d21);
-          it = (s2ps + ps0) * 0.25f;
-          vt = (fabsf(s2ps - s1ps) + fabsf(pa0 - s1ps)) * 0.5f;
-          ib = (pa0 + s2ns) * 0.25f;
-          vb = (fabsf(s2ns - s1ns) + fabsf(ps0 - s1ns)) * 0.5f;
-        }
-        dabs = abs(dmc) >> 1;
-      } else {
-        const float gu0 = up0(dmc), gu1 = up1(dmc), gu2 = up2(dmc);
-        const float gd0 = dn0(dmc), gd1 = dn1(dmc), gd2 = dn2(dmc);
-        it = (gu0 + gd0) * 0.5f;
-        ib = (gu2 + gd2) * 0.5f;
-        vt = fabsf(gu0 - gu1) + fabsf(gu2 - gu1);
-        vb = fabsf(gd2 - gd1) + fabsf(gd0 - gd1);
-        dabs = abs(dmc);
+  const size_t fb = (size_t)b * w;
+
+  // line l's inputs into ring stage l % ring, as one cp.async group
+  auto issue = [&](int l) {
+    float* S = ring + (l % pl.ring) * SW;
+    const float* DL = dl + (size_t)l * st + fb;
+    const float* NB = nb + (size_t)l * 3 * st + fb;
+    const float* CI = cint + (size_t)l * st + fb;
+    const float* DM = reinterpret_cast<const float*>(dm + (size_t)l * 3 * st + fb);
+    float* Ss = S + 4 * WW;
+    if (pl.vec) {
+      for (int xx = lo + 4 * tid; xx < hi; xx += 4 * nt) {
+        const int i = xx - base;
+        cp_async16(S + i, DL + xx);
+        cp_async16(S + WW + i, NB + xx);
+        cp_async16(S + 2 * WW + i, NB + st + xx);
+        cp_async16(S + 3 * WW + i, NB + 2 * st + xx);
       }
-      const float dlx = DL[x], d1p = D1P[x], d1n = D1N[x], ci = CI[x];
-      const float vc = fabsf(dlx - d1p) + fabsf(dlx - d1n);
-      const float e0 = fabsf(it - d1p), e1 = fabsf(ib - d1n);
-      const float e2 = fabsf(vt - vc), e3 = fabsf(vb - vc);
-      float m0, m1;
-      if (mode == 1) {
-        m0 = fminf(e0, e1);
-        m1 = fminf(e2, e3);
-      } else if (mode == 2) {
-        m0 = (e0 + e1) * 0.5f;
-        m1 = (e2 + e3) * 0.5f;
-      } else {
-        m0 = fmaxf(e0, e1);
-        m1 = fmaxf(e2, e3);
+      for (int xx = x0 + 4 * tid; xx < x1; xx += 4 * nt) {
+        const int i = xx - x0;
+        cp_async16(Ss + i, CI + xx);
+        cp_async16(Ss + Sc + i, DM + xx);
+        cp_async16(Ss + 2 * Sc + i, DM + st + xx);
+        cp_async16(Ss + 3 * Sc + i, DM + 2 * st + xx);
       }
-      const float a0 = m0 * rcp0;
-      const float a1 = m1 * rcp1;
-      const float a2 = fmaxf((vt2 - (float)dabs) * rcp2, 0.0f);
-      const float a = fminf(fmaxf(a0, fmaxf(a1, a2)), 1.0f);
-      float tl = (1.0f - a) * dlx + a * ci;
-      tl = keep ? ci : tl;
-      out[o1 + x] = tl;
-      nxt[x] = tl;
+    } else {
+      for (int xx = lo + tid; xx < hi; xx += nt) {
+        const int i = xx - base;
+        cp_async4(S + i, DL + xx);
+        cp_async4(S + WW + i, NB + xx);
+        cp_async4(S + 2 * WW + i, NB + st + xx);
+        cp_async4(S + 3 * WW + i, NB + 2 * st + xx);
+      }
+      for (int xx = x0 + tid; xx < x1; xx += nt) {
+        const int i = xx - x0;
+        cp_async4(Ss + i, CI + xx);
+        cp_async4(Ss + Sc + i, DM + xx);
+        cp_async4(Ss + 2 * Sc + i, DM + st + xx);
+        cp_async4(Ss + 3 * Sc + i, DM + 2 * st + xx);
+      }
     }
-    __syncthreads();
-    float* tmp = cur;
-    cur = nxt;
-    nxt = tmp;
+    cp_async_commit();
+  };
+
+  // column x's values of line l that do not need cur
+  auto precompute = [&](int l, int x) {
+    const float* S = ring + (l % pl.ring) * SW;
+    const float* CI = S + 4 * WW;
+    const int32_t* DMP = reinterpret_cast<const int32_t*>(CI + Sc);
+    const int32_t* DMC = DMP + Sc;
+    const int32_t* DMN = DMC + Sc;
+    const int i = x - x0;
+    VcheckPre v;
+    const int dmc = DMC[i], dmp = DMP[i], dmn = DMN[i];
+    bool keep = dmc == 0;
+    keep |= (max(dmc * dmp, dmc * dmn) < 0) || (dmp == dmn && dmp == 0);
+    const int maxoff = vcheck_reach<kHp>(dmc);
+    keep |= (x + maxoff >= w) || (x - maxoff < 0);
+    v.ci = CI[i];
+    v.kind = 0;
+    if (keep) return v;
+    // every gather reaches at most maxoff columns from x, inside the row:
+    // within the ring's window where maxoff <= H
+    if (maxoff > H) v.kind = 3;
+    else vcheck_gather<kHp>(v, dmc, S, S + WW, S + 2 * WW, S + 3 * WW, x - base, rcp2, vt2);
+    return v;
+  };
+
+  // column x of line li from its values computed ahead and cur
+  auto update = [&](int x, const VcheckPre& v) {
+    if (v.kind == 0) return v.ci;
+    const int xi = x - base;
+    return vcheck_finish<kHp>(v, cur[xi + v.o0], kHp && v.kind == 2 ? cur[xi + v.o1] : 0.0f,
+                              mode, rcp0, rcp1);
+  };
+
+  if (tid == 0) {
+    mbar_init(bar0, 1);
+    mbar_init(bar0 + 8, 1);
+    asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+    // lines 0 and 1 bring halos (the last line sends none)
+    if (n_off > 1) mbar_expect(bar0, halo_bytes);
+    if (n_off > 2) mbar_expect(bar0 + 8, halo_bytes);
   }
+  for (int l = 0; l + 1 < pl.ring; ++l) {
+    if (l < n_off) issue(l);
+    else cp_async_commit();
+  }
+  for (int xx = lo + tid; xx < hi; xx += nt) cur[xx - base] = init[fb + xx];
+  // mark the lines with a direction in this slice that reaches past the
+  // halo (bit l % 32 of word l / 32): one thread per line and 4 columns (1
+  // without 16-byte copies), each thread's 8 loads in flight at once
+  uint32_t* const marks = reinterpret_cast<uint32_t*>(ring + pl.ring * SW);
+  uint32_t* const far_lines = marks + pl.marks;  // the cluster's
+  for (int i = tid; i < pl.marks; i += nt) marks[i] = 0;
+  __syncthreads();
+  {
+    const int per = pl.vec ? 4 : 1, cpl = (x1 - x0 + per - 1) / per;
+    const int total = n_off * cpl;
+    const int32_t* D = dm + st + fb + x0;  // line 0's directions, at x0
+    for (int e0 = tid; e0 < total; e0 += 8 * nt) {
+      int4 d[8];
+#pragma unroll
+      for (int u = 0; u < 8; ++u) {
+        const int e = e0 + u * nt;
+        d[u] = make_int4(0, 0, 0, 0);
+        if (e < total) {
+          const int32_t* q = D + (size_t)(e / cpl) * 3 * st + (e % cpl) * per;
+          if (pl.vec) d[u] = __ldg(reinterpret_cast<const int4*>(q));
+          else d[u].x = __ldg(q);
+        }
+      }
+#pragma unroll
+      for (int u = 0; u < 8; ++u) {
+        const int e = e0 + u * nt;
+        const int r = max(max(vcheck_reach<kHp>(d[u].x), vcheck_reach<kHp>(d[u].y)),
+                          max(vcheck_reach<kHp>(d[u].z), vcheck_reach<kHp>(d[u].w)));
+        if (e < total && r > H) atomicOr(marks + (e / cpl >> 5), 1u << (e / cpl & 31));
+      }
+    }
+  }
+  // the barriers are set and every block of the cluster runs before any
+  // halo store; every block's marks are made
+  cluster_arrive();
+  cluster_wait();
+  for (int i = tid; i < pl.marks; i += nt) {
+    uint32_t m = 0;
+    for (int k = 0; k < pl.blocks; ++k) m |= cluster.map_shared_rank(marks, k)[i];
+    far_lines[i] = m;
+  }
+  // the neighbours' cur/nxt buffers (at the same offsets in every block)
+  // and halo barriers
+  const uint32_t left_buf = has_left ? cluster_addr(smem_addr(buf), j - 1) : 0;
+  const uint32_t right_buf = has_right ? cluster_addr(smem_addr(buf), j + 1) : 0;
+  const uint32_t left_bar = has_left ? cluster_addr(bar0, j - 1) : 0;
+  const uint32_t right_bar = has_right ? cluster_addr(bar0, j + 1) : 0;
+
+  // column x of line li into nxt, the neighbours' halos and out
+  auto emit = [&](int li, int x, float tl) {
+    const int xi = x - base;
+    nxt[xi] = tl;
+    if (li + 1 < n_off) {
+      // the edge strips into the neighbours' halos (on the barrier of line
+      // li's parity): column x sits at xi + slice in the left neighbour's
+      // window, xi - slice in the right's
+      const uint32_t nx = 4 * (uint32_t)(nxt - buf);  // nxt's byte offset in the buffers
+      const uint32_t bar = 8 * (li & 1);
+      if (has_left && x - x0 < H) st_async(left_buf + nx + 4 * (xi + Sc), tl, left_bar + bar);
+      if (has_right && x >= x1 - H) st_async(right_buf + nx + 4 * (xi - Sc), tl, right_bar + bar);
+    }
+    out[(size_t)li * st + fb + x] = tl;
+  };
+
+  for (int li = 0; li < n_off; ++li) {
+    // line li's stage is in, every thread is done with line li-1, and
+    // this block's part of cur (nxt of line li-1) is written
+    cp_async_wait_pending(pl.ring - 2);
+    __syncthreads();
+    // every thread has seen line li-2's halo land: its barrier may take
+    // line li's (lines 0 and 1 were set above; the last line sends none)
+    if (tid == 0 && li >= 2 && li + 1 < n_off) mbar_expect(bar0 + 8 * (li & 1), halo_bytes);
+    if (li + pl.ring - 1 < n_off) issue(li + pl.ring - 1);  // into line li-1's stage
+    else cp_async_commit();
+    VcheckPre v[kCols];
+#pragma unroll
+    for (int k = 0; k < kCols; ++k) {
+      const int x = x0 + tid + k * nt;
+      if (x < x1) v[k] = precompute(li, x);
+    }
+    if (li > 0) {
+      // the neighbours' columns of line li-1 have landed in cur
+      mbar_wait(bar0 + 8 * ((li - 1) & 1), ((li - 1) >> 1) & 1);
+    }
+    unsigned far_cols = 0;  // bit k: column k reaches past the halo
+#pragma unroll
+    for (int k = 0; k < kCols; ++k) {
+      const int x = x0 + tid + k * nt;
+      if (x < x1) {
+        if (v[k].kind == 3) far_cols |= 1u << k;
+        else emit(li, x, update(x, v[k]));
+      }
+    }
+    if ((far_lines[li >> 5] >> (li & 31)) & 1u) {
+      // a column of the line reaches past the halo: after this barrier
+      // every block's line li-1 is in device memory
+      if (li > 0) {
+        cluster_arrive();
+        cluster_wait();
+      }
+      const float* S = ring + (li % pl.ring) * SW;
+      const float* CI = S + 4 * WW;
+      const int32_t* DMC = reinterpret_cast<const int32_t*>(CI + 2 * Sc);
+      const float* prev = li == 0 ? init + fb : out + (size_t)(li - 1) * st + fb;
+#pragma unroll
+      for (int k = 0; k < kCols; ++k) {
+        const int x = x0 + tid + k * nt;
+        if ((far_cols >> k) & 1u) {
+          emit(li, x,
+               vcheck_far<kHp>(dl + (size_t)li * st + fb, nb + (size_t)li * 3 * st + fb, st,
+                               prev, x, DMC[x - x0], CI[x - x0], mode, rcp0, rcp1, rcp2, vt2));
+        }
+      }
+    }
+    float* t = cur;
+    cur = nxt;
+    nxt = t;
+  }
+  // no block leaves while a neighbour may still address it
+  cluster_arrive();
+  cluster_wait();
+  if (tid == 0) {  // the memory holds no barrier for the next block on this SM
+    asm volatile("mbarrier.inval.shared::cta.b64 [%0];" ::"r"(bar0) : "memory");
+    asm volatile("mbarrier.inval.shared::cta.b64 [%0];" ::"r"(bar0 + 8) : "memory");
+  }
+}
+
+// The cluster for frames of width w and directions up to mdis (hp: 2*mdis
+// half-pels, mdis columns): at most `most` blocks, each slice at least the
+// halo wide, so that a block's halo lies in its two neighbours, and at most
+// kVcheckCols columns per thread; 16-byte copies where w is a multiple of 4
+// (slice and halo rounded up to one too) and the rows start on 16 bytes
+// (`aligned`); a mark bit for each of n_off lines; the deepest ring (2 to
+// kVcheckRing stages) that fits shared memory.  blocks = 0: no plan fits.
+VcheckPlan vcheck_plan(int w, int mdis, int n_off, int most, bool aligned) {
+  VcheckPlan p;
+  p.marks = (n_off + 31) / 32;
+  p.vec = w % 4 == 0 && aligned;
+  p.halo = p.vec ? (mdis + 3) / 4 * 4 : mdis;
+  int c = w / p.halo;
+  c = c < 1 ? 1 : (c > most ? most : c);
+  p.slice = (w + c - 1) / c;
+  if (p.vec) p.slice = (p.slice + 3) / 4 * 4;
+  p.blocks = (w + p.slice - 1) / p.slice;
+  p.cols = p.slice <= kVcheckMaxThreads ? 1 : kVcheckCols;
+  p.threads = ((p.slice + p.cols - 1) / p.cols + 31) / 32 * 32;
+  const long long words =
+      (long long)((kMaxSmemBytes - 16) / sizeof(float)) - 2 * p.win() - 2 * p.marks;
+  p.ring = (int)(words / p.stage());
+  if (p.ring > kVcheckRing) p.ring = kVcheckRing;
+  if (p.ring < 2 || p.threads > kVcheckMaxThreads) p.blocks = 0;
+  return p;
 }
 
 }  // namespace
@@ -887,32 +1321,44 @@ int vz_eedi3_fused(const void* r3p, const void* r1p, const void* r1n, const void
 }
 
 // dl, cint, out: (n_off, B, w) f32; nb: (n_off, 3, B, w) f32; dm: (n_off, 3,
-// B, w) int32; init: (B, w) f32; all contiguous on one device.
+// B, w) int32; init: (B, w) f32; all contiguous on one device.  mdis: the
+// op's, which sizes the halo (directions that reach further take the far
+// path).
 int vz_vcheck(const void* dl, const void* nb, const void* dm, const void* cint,
-              const void* init, void* out, int n_off, int nbatch, int w, int hp, int mode,
-              float rcp0, float rcp1, float rcp2, float vt2, void* stream) {
+              const void* init, void* out, int n_off, int nbatch, int w, int mdis, int hp,
+              int mode, float rcp0, float rcp1, float rcp2, float vt2, void* stream) {
   if (n_off == 0 || nbatch == 0 || w == 0) return 0;
-  const size_t bytes = 2 * sizeof(float) * (size_t)w;
-  cudaStream_t s = (cudaStream_t)stream;
-  const float *pdl = (const float*)dl, *pnb = (const float*)nb;
-  const int32_t* pdm = (const int32_t*)dm;
-  const float *pci = (const float*)cint, *pin = (const float*)init;
-  float* po = (float*)out;
-  cudaError_t err;
-  if (hp) {
-    err = cudaFuncSetAttribute(vcheck_kernel<true>,
-                               cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
-    if (err != cudaSuccess) return (int)err;
-    vcheck_kernel<true><<<nbatch, kVcheckThreads, bytes, s>>>(
-        pdl, pnb, pdm, pci, pin, po, n_off, nbatch, w, mode, rcp0, rcp1, rcp2, vt2);
-  } else {
-    err = cudaFuncSetAttribute(vcheck_kernel<false>,
-                               cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
-    if (err != cudaSuccess) return (int)err;
-    vcheck_kernel<false><<<nbatch, kVcheckThreads, bytes, s>>>(
-        pdl, pnb, pdm, pci, pin, po, n_off, nbatch, w, mode, rcp0, rcp1, rcp2, vt2);
+  if (mdis < 1) return (int)cudaErrorInvalidValue;
+  // the portable cluster, or for rows too wide for it twice as many blocks
+  bool aligned = true;
+  for (const void* t : {dl, nb, dm, cint}) aligned = aligned && (uintptr_t)t % 16 == 0;
+  VcheckPlan P = vcheck_plan(w, mdis, n_off, kVcheckCluster, aligned);
+  if (P.blocks == 0) P = vcheck_plan(w, mdis, n_off, 2 * kVcheckCluster, aligned);
+  if (P.blocks == 0) return (int)cudaErrorInvalidValue;
+  auto k = hp ? (P.cols == 1 ? vcheck_kernel<true, 1> : vcheck_kernel<true, kVcheckCols>)
+              : (P.cols == 1 ? vcheck_kernel<false, 1> : vcheck_kernel<false, kVcheckCols>);
+  cudaError_t err =
+      cudaFuncSetAttribute(k, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)P.bytes());
+  if (err == cudaSuccess && P.blocks > kVcheckCluster) {
+    err = cudaFuncSetAttribute(k, cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
   }
-  return (int)cudaGetLastError();
+  if (err != cudaSuccess) return (int)err;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3((unsigned)nbatch * P.blocks);
+  cfg.blockDim = dim3(P.threads);
+  cfg.dynamicSmemBytes = P.bytes();
+  cfg.stream = (cudaStream_t)stream;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = P.blocks;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  const cudaError_t e = cudaLaunchKernelEx(
+      &cfg, k, (const float*)dl, (const float*)nb, (const int32_t*)dm, (const float*)cint,
+      (const float*)init, (float*)out, n_off, nbatch, w, mode, rcp0, rcp1, rcp2, vt2, P);
+  return e != cudaSuccess ? (int)e : (int)cudaGetLastError();
 }
 
 }  // extern "C"

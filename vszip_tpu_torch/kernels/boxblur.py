@@ -26,9 +26,11 @@ limbs, 64-row strips with clamped neighbour views); the CUDA kernels keep
 only the arithmetic: native int32/int64 running and prefix sums, with a
 warp's loads on neighbouring addresses.  ``v_fixed`` walks one column per
 thread (coalesced across the warp, rows loaded 8 ahead), ``h_fixed`` puts one
-row per warp in shared memory and runs all passes there (a row too long for
-shared memory uses a global scratch buffer that the wrapper allocates, with
-the same arithmetic), and ``ct_v_quant``
+mirror-padded row per block in shared memory, cuts it into segments of 8
+samples, one per thread (segment sums, one block scan, sliding sums along
+each segment), and runs all passes there (a row too long for shared memory
+uses a global scratch buffer that the wrapper allocates, with the same
+arithmetic), and ``ct_v_quant``
 is ``v_fixed``'s walk with the comptime mirror and quantiser.  Multi-pass V
 ping-pongs each column through device memory, and B1 runs as two launches;
 fusing those is later work.
@@ -161,7 +163,7 @@ def _lib() -> ctypes.CDLL:
     p, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
     lib.vz_v_fixed.argtypes = [p, p, p, i, i, i, i, i, i, p]
     lib.vz_h_fixed.argtypes = [p, p, p, i, ll, i, i, i, p]
-    lib.vz_h_fixed_scratch_words.argtypes = [ll, i, i, i]
+    lib.vz_h_fixed_scratch_words.argtypes = [ll, i, i]
     lib.vz_h_fixed_scratch_words.restype = ll
     lib.vz_ct_v_quant.argtypes = [p, p, i, i, i, i, i, p]
     for fn in (lib.vz_v_fixed, lib.vz_h_fixed, lib.vz_ct_v_quant):
@@ -202,7 +204,7 @@ def _v_fixed(x: torch.Tensor, radius: int, passes: int) -> torch.Tensor:
 def _h_fixed(x: torch.Tensor, radius: int, passes: int) -> torch.Tensor:
     n, h, w = x.shape
     out = torch.empty_like(x)
-    words = _lib().vz_h_fixed_scratch_words(n * h, w, radius, passes)
+    words = _lib().vz_h_fixed_scratch_words(n * h, w, radius)
     scratch = torch.empty(words, dtype=torch.int32, device=x.device) if words else None
     with torch.cuda.device(x.device):
         _build.check(_lib().vz_h_fixed, x.data_ptr(), out.data_ptr(),

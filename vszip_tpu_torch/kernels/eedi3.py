@@ -179,7 +179,7 @@ def _lib() -> ctypes.CDLL:
     lib.vz_eedi3_scratch_words.restype = ctypes.c_longlong
     lib.vz_eedi3_fused.argtypes = [p, p, p, p, p, p, p, p, i, i, i, i, i,
                                    f, d, f, f, f, p]
-    lib.vz_vcheck.argtypes = [p, p, p, p, p, p, i, i, i, i, i, f, f, f, f, p]
+    lib.vz_vcheck.argtypes = [p, p, p, p, p, p, i, i, i, i, i, i, f, f, f, f, p]
     for fn in (lib.vz_eedi3_fused, lib.vz_vcheck):
         fn.restype = ctypes.c_int
     return lib
@@ -269,9 +269,9 @@ def vcheck(dl, nb, dm, cint, init, w: int, mdis: int, hp: bool, vcheck: int,
     if dl.device.type != "cuda":
         raise ValueError(f"vszip_tpu_torch: no vcheck kernel for device {dl.device}")
     n_off, b, width = dl.shape
-    if width != w or vcheck not in (1, 2, 3):
-        raise ValueError(f"vszip_tpu_torch: vcheck takes rows of width w={w} and "
-                         f"vcheck 1-3, got width {width}, vcheck {vcheck}")
+    if width != w or vcheck not in (1, 2, 3) or mdis < 1:
+        raise ValueError(f"vszip_tpu_torch: vcheck takes rows of width w={w}, vcheck 1-3 "
+                         f"and mdis >= 1, got width {width}, vcheck {vcheck}, mdis {mdis}")
     for name, t, dt, shape in (("dl", dl, torch.float32, (n_off, b, w)),
                                ("nb", nb, torch.float32, (n_off, 3, b, w)),
                                ("dm", dm, torch.int32, (n_off, 3, b, w)),
@@ -281,7 +281,7 @@ def vcheck(dl, nb, dm, cint, init, w: int, mdis: int, hp: bool, vcheck: int,
     out = torch.empty_like(dl)
     with torch.cuda.device(dl.device):
         _build.check(_lib().vz_vcheck, dl.data_ptr(), nb.data_ptr(), dm.data_ptr(),
-                     cint.data_ptr(), init.data_ptr(), out.data_ptr(), n_off, b, w, int(hp),
-                     vcheck, rcp0, rcp1, rcp2, vt2, _build.stream(dl))
+                     cint.data_ptr(), init.data_ptr(), out.data_ptr(), n_off, b, w, mdis,
+                     int(hp), vcheck, rcp0, rcp1, rcp2, vt2, _build.stream(dl))
     LAUNCHES["vcheck"] += 1
     return out
