@@ -53,9 +53,13 @@ def cuda():
 
 
 def _same(a, b):
-    # uint16 compared as int32: torch lacks uint16 kernels on some devices
-    return (a.dtype == b.dtype and a.shape == b.shape
-            and torch.equal(a.to(torch.int32), b.to(torch.int32)))
+    # uint16 compared as int32: torch lacks uint16 kernels on some devices;
+    # floats as they are, bit for bit
+    if a.dtype != b.dtype or a.shape != b.shape:
+        return False
+    if a.is_floating_point():
+        return torch.equal(a, b)
+    return torch.equal(a.to(torch.int32), b.to(torch.int32))
 
 
 def _rand(shape, dtype, device, seed=0):
@@ -677,6 +681,33 @@ def test_comb_mask_kernel_matches_plain(cuda, shape):
                          km.comb_mask_ref(x, cthresh, mthresh, metric_1, expand))
 
 
+# B15's tiles are 128 columns x 32 rows over runs of 8 frames: frames,
+# widths (w % 4 and w % 16 not 0: byte loads and stores) and heights around
+# them
+@pytest.mark.parametrize("shape", [(n, 37, 130) for n in (1, 2, 3, 4, 5, 7, 8, 9, 15, 16, 17,
+                                                          64)]
+                         + [(3, 9, w) for w in (1, 2, 3, 4, 5, 127, 128, 129, 255, 256, 257,
+                                                1921)]
+                         + [(3, h, w) for h in (5, 6, 31, 32, 33) for w in (256, 257)]
+                         + [(40, 40, 1920)], ids=str)
+def test_checkmate_kernel_matches_plain_at_tile_edges(cuda, shape):
+    for x in (_rand(shape, torch.uint8, cuda, seed=5), _smooth_u8(shape, cuda, 5)):
+        for thr, tmax, tthr2 in ((12, 12, 0), (12, 12, 10), (0, 1, 0), (255, 255, 3),
+                                 (20, 30, 255)):
+            assert _same(kk.checkmate(x, thr, tmax, tthr2), kk.checkmate_ref(x, thr, tmax, tthr2))
+
+
+def test_checkmate_kernel_takes_planes_off_16_byte_alignment(cuda):
+    """A plane that starts one byte past an aligned address: rows of 256
+    bytes, but byte loads and stores."""
+    n, h, w = 5, 40, 256
+    flat = _smooth_u8((1, 1, n * h * w + 1), cuda, 6).view(-1)
+    x = flat[1:].view(n, h, w)
+    assert x.is_contiguous() and x.data_ptr() % 16 == 1
+    for tthr2 in (0, 10):
+        assert _same(kk.checkmate(x, 12, 12, tthr2), kk.checkmate_ref(x, 12, 12, tthr2))
+
+
 @pytest.mark.parametrize("op,fmt,args,launches", [
     ("compress", "YUV420P8", {}, {"compress_plane": 3}),
     ("compress", "YUV420P8", {"codec": 1, "quality": 95}, {"compress_plane": 3}),
@@ -795,6 +826,100 @@ def test_bilateral_dither_table_beyond_shared_memory(cuda):
     for has_ref in (False, True):
         x = _banded((1, 70, 90), torch.uint16, cuda, 3)
         _bd_hold(x, _banded((1, 70, 90), torch.uint16, cuda, 4) if has_ref else None, 64, dyx)
+
+
+def _bd_table(r, k, seed):
+    """A (23, k, 2) int16 table of offsets within +-(r-1), each list its own,
+    its first point the centre."""
+    t = np.random.default_rng(seed).integers(1 - r, r, (23, k, 2)).astype(np.int16)
+    t[:, 0] = 0
+    return t
+
+
+def _bd_hold_subspl(x, ref, r, start, dyx, band=True):
+    """B18 against its plain version; it launches once, on the band layout
+    (or the 32x16 tile where `band` is False)."""
+    c = _bd_consts(x.dtype)
+    assert (kbd._subspl_band(x, ref, r, dyx.shape[1]) is not None) == band
+    kbd.reset_launches()
+    got = kbd.subspl_blur(x, ref, r, start, dyx, *c)
+    assert kbd.LAUNCHES["subspl_blur"] == 1
+    assert _same(got, kbd.subspl_blur_ref(x, ref, r, start, dyx, *c))
+
+
+# B18's band: warp g takes columns 4g + i + 92j of a 736-column band, or
+# of a 368-, 184- or 92-column band of 2, 4 or 8 frames: the most frames
+# the clip fills (9 frames: a second group of one)
+@pytest.mark.parametrize("w", [1, 3, 91, 92, 93, 735, 736, 737, 960, 1920, 1921])
+@pytest.mark.parametrize("dtype", [torch.uint8, torch.uint16, torch.float32], ids=str)
+@pytest.mark.parametrize("has_ref", [False, True])
+@pytest.mark.parametrize("n, frames", [(1, 1), (3, 2), (9, 8)])
+def test_subspl_band_matches_plain_at_band_widths(cuda, w, dtype, has_ref, n, frames):
+    shape = (n, 24, w)
+    r = min(8, w)
+    x = _banded(shape, dtype, cuda, w)
+    ref = _banded(shape, dtype, cuda, w + 1) if has_ref else None
+    dyx = torch.from_numpy(_bd_table(r, 30, w)).to(cuda)
+    assert kbd._subspl_band(x, ref, r, 30)[:2] == (frames, 92 * 8 // frames)
+    _bd_hold_subspl(x, ref, r, _bd_op._start_rows(shape[1], str(cuda)), dyx)
+
+
+@pytest.mark.parametrize("dtype", [torch.uint8, torch.uint16, torch.float32], ids=str)
+@pytest.mark.parametrize("has_ref", [False, True])
+def test_subspl_band_matches_plain_at_row_strip_edges(cuda, dtype, has_ref):
+    """Heights 1, 2 and one below, at and above a block's rows R (one frame
+    per warp on a one-frame plane: R+1 rows take two strips)."""
+    w, r = 200, 8
+    dyx = torch.from_numpy(_bd_table(r, 30, 1)).to(cuda)
+    tall = _banded((1, 512, w), dtype, cuda, 0)
+    frames, _, rows = kbd._subspl_band(tall, tall if has_ref else None, r, 30)
+    assert frames == 1
+    for h in (1, 2, rows - 1, rows, rows + 1):
+        x = _banded((1, h, w), dtype, cuda, h)
+        ref = _banded((1, h, w), dtype, cuda, h + 1) if has_ref else None
+        rh = min(r, h)
+        table = dyx if rh == r else torch.from_numpy(_bd_table(rh, 30, h)).to(cuda)
+        if h == rows + 1:
+            assert kbd._subspl_band(x, ref, rh, 30)[2] == rows
+        _bd_hold_subspl(x, ref, rh, _bd_op._start_rows(h, str(cuda)), table)
+
+
+@pytest.mark.parametrize("has_ref", [False, True])
+def test_subspl_band_every_list_in_every_warp(cuda, has_ref):
+    """Row y starts at list y % 23, so over 46 rows each warp reads every
+    list twice; each list has its own offsets."""
+    shape, r = (2, 46, 2 * 736 + 5), 12
+    x = _banded(shape, torch.uint16, cuda, 3)
+    ref = _banded(shape, torch.uint16, cuda, 4) if has_ref else None
+    start = (torch.arange(shape[1], device=cuda) % 23).to(torch.int32)
+    dyx = torch.from_numpy(_bd_table(r, 41, 5)).to(cuda)
+    _bd_hold_subspl(x, ref, r, start, dyx)
+
+
+@pytest.mark.parametrize("r", [2, 8, 16, 33])
+@pytest.mark.parametrize("dtype", [torch.uint8, torch.uint16, torch.float32], ids=str)
+@pytest.mark.parametrize("has_ref", [False, True])
+def test_subspl_band_matches_plain_at_radii(cuda, r, dtype, has_ref):
+    """The op's tables (spiral lists past r 16); r 33 with a ref takes the
+    32x16 tile (a band's tile and halo exceed shared memory)."""
+    shape = (5, 90, 1000)
+    x = _banded(shape, dtype, cuda, r)
+    ref = _banded(shape, dtype, cuda, r + 1) if has_ref else None
+    dyx = _bd_op._table(r, 0.0 if r <= 16 else 200.0, str(cuda))[0]
+    _bd_hold_subspl(x, ref, r, _bd_op._start_rows(shape[1], str(cuda)), dyx,
+                    band=not (r == 33 and has_ref))
+
+
+def test_subspl_band_takes_planes_off_16_byte_alignment(cuda):
+    """A uint16 plane one sample past an aligned address fills its tiles by
+    single loads."""
+    n, h, w = 3, 30, 960
+    flat = _banded((1, 1, n * h * w + 1), torch.uint16, cuda, 7).view(-1)
+    x = flat[1:].view(n, h, w)
+    assert x.is_contiguous() and x.data_ptr() % 16 == 2
+    dyx = _bd_op._table(16, 0.0, str(cuda))[0]
+    for ref in (None, x.flip(0).contiguous()):
+        _bd_hold_subspl(x, ref, 16, _bd_op._start_rows(h, str(cuda)), dyx)
 
 
 @pytest.mark.parametrize("r", [2, 8, 16, 33, 75, 110, 200])

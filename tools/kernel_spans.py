@@ -31,13 +31,27 @@ exports the query, and ptxas' registers of the package's build:
 - ``h_fixed`` (B2 and B1's horizontal stage, ``h_fixed_kernel``) on the
   luma of 64 frames of 1080p uint16, r 13 with 1 and 5 passes and r 23
   with 1: thread 0's cycles per row in staging the row, in the segment sums
-  and scan, and in the window sums and output (all passes).
+  and scan, and in the window sums and output (all passes);
+- ``subspl`` (B18, ``subspl_kernel``) at BilateralDither's defaults (r 16,
+  k 30) on 64 frames of 1080p and 540x960 uint16: thread 0's cycles per
+  block and frame group in the tile's fill, the taps and the divisions and
+  stores, and the band shape;
+- ``checkmate`` (B15, ``checkmate_kernel``) on 64 frames of 1080p and
+  540x960 of the 8-bit picture of ``chip_smoke.py``, tthr2 0 and 10:
+  thread 0's cycles per frame at the barrier before it, in issuing the
+  next frame's copies and computing, and in waiting for the copies and
+  widening them, and per block from its start to its first frame and to
+  its end.
+
+For B18 and B15 it also prints the instruction mix of each instantiation
+and of each of its loops (``cuobjdump -sass`` of the package's build).
 
 The anchors are lines of the current sources; an older commit's kernels
 are read with that commit's tool (``git show <commit>:tools/...``).
 """
 
 import ctypes
+import importlib
 import re
 import subprocess
 import sys
@@ -50,7 +64,9 @@ ROOT = Path(__file__).resolve().parent.parent
 sys.path.insert(0, str(ROOT))
 
 from vszip_tpu_torch import _build  # noqa: E402
+from vszip_tpu_torch.kernels import bilateral_dither as kbd  # noqa: E402
 from vszip_tpu_torch.kernels import boxblur as kb  # noqa: E402
+from vszip_tpu_torch.kernels import checkmate as kk  # noqa: E402
 from vszip_tpu_torch.kernels import eedi3 as ke  # noqa: E402
 from vszip_tpu_torch.ops.eedi3 import _pad_rows  # noqa: E402
 
@@ -60,6 +76,9 @@ FRAMES, LINES, W, MDIS, NRAD = 8, 538, 1920, 20, 2
 EEDI3_COEFS = tuple(float(np.float32(v)) for v in (0.2 / 3, 0.25 / 255, 20.0 / 255)) + (
     float(np.float32(1.0) - np.float32(0.2) - np.float32(0.25)),)
 RCP = (7.96875, 3.984375, 0.25, 4.0)  # vcheck's reciprocals and vthresh2 (32, 64, 4)
+
+
+T0 = "threadIdx.x == 0 && threadIdx.y == 0"
 
 
 def _add(slot: int, value: str, who: str = "threadIdx.x == 0") -> str:
@@ -149,6 +168,54 @@ extern "C" int vz_probe_occupancy(int w, int r, int passes, int* blocks, int* th
   *threads = hs.threads;
   return (int)cudaOccupancyMaxActiveBlocksPerMultiprocessor(
       blocks, h_fixed_kernel<uint16_t, false>, hs.threads, bytes);
+}
+"""),
+    "subspl": ("bilateral_dither", kbd, (
+        "fill and its barriers", "taps", "division and store"), (
+        ("  const int rows = min(b.rows, p.h - y0);\n", "",
+         "  long long sb_fill = 0, sb_taps = 0, sb_out = 0, sb_n = 0;\n"),
+        ("    __syncthreads();  // the previous frames' taps are read (and the table is in)\n",
+         "    const long long sb0 = clock64();\n", ""),
+        ("    fill_band<T, kRef, kVec>(tile, src, ref, f0, ox, y0, p, b);\n    __syncthreads();\n",
+         "", "    sb_fill += clock64() - sb0;\n    ++sb_n;\n"),
+        ("      float acc0 = 0.f, accw0 = 0.f, acc1 = 0.f, accw1 = 0.f;\n",
+         "      const long long sb1 = clock64();\n", ""),
+        ("        tap_e(t1[lo1[j]], cen1, cref1, p, acc1, accw1);\n      }\n", "",
+         "      const long long sb2 = clock64();\n      sb_taps += sb2 - sb1;\n"),
+        ("        if (r1 > rr) put(o + p.w, cen1 + acc1 / fmaxf(accw1, p.swmin), p.peak);\n"
+         "      }\n", "", "      sb_out += clock64() - sb2;\n"),
+        ("}\n\nsize_t tile_bytes(",
+         f"  {_add(0, 'sb_fill')} {_add(1, 'sb_taps')} {_add(2, 'sb_out')} "
+         f"{_add(SLOTS - 1, 'sb_n')}\n", "")), ""),
+    "checkmate": ("checkmate", kk, (
+        "barrier before the frame", "next copies issued, 16 pixels computed",
+        "copies waited for, barrier, widening", "the block's life, from its start",
+        "from its start to its first frame"), (
+        ("                 8192 / tmax, tthr2};\n", "",
+         "  long long cs_bar = 0, cs_comp = 0, cs_wid = 0, cs_n = 0, cs_pro = 0;\n"
+         "  const long long cs_start = clock64();\n"),
+        ("      __syncthreads();  // frame f+W is widened, frame f-1 computed, the raw tile free\n",
+         "      const long long cs0 = clock64();\n      if (cs_n == 0) cs_pro = cs0 - cs_start;\n",
+         "      const long long cs1 = clock64();\n      cs_bar += cs1 - cs0;\n"),
+        ("                                out + f * plane, h, w, x0, y0, k);\n", "",
+         "      const long long cs2 = clock64();\n      cs_comp += cs2 - cs1;\n"),
+        ("        widen<kAligned>(slot(f + W + 1), raw, w, x0);\n      }\n", "",
+         "      cs_wid += clock64() - cs2;\n      ++cs_n;\n"),
+        ("}\n\ntemplate <bool kTthr2, bool kAligned>\nint launch(",
+         f"  {_add(0, 'cs_bar')} {_add(1, 'cs_comp')} {_add(2, 'cs_wid')} "
+         f"{_add(3, 'cs_n * (clock64() - cs_start)')} {_add(4, 'cs_n * cs_pro')} "
+         f"{_add(SLOTS - 1, 'cs_n')}\n", "")), """
+extern "C" int vz_probe_occupancy(int tthr2, int aligned, int unused, int* blocks, int* threads) {
+  const void* k = tthr2 ? (aligned ? (const void*)checkmate_kernel<true, true>
+                                   : (const void*)checkmate_kernel<true, false>)
+                        : (aligned ? (const void*)checkmate_kernel<false, true>
+                                   : (const void*)checkmate_kernel<false, false>);
+  *threads = kThreads;
+  cudaError_t e = cudaFuncSetAttribute(k, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                       smem_bytes(tthr2));
+  if (e != cudaSuccess) return (int)e;
+  return (int)cudaOccupancyMaxActiveBlocksPerMultiprocessor(blocks, k, kThreads,
+                                                            smem_bytes(tthr2));
 }
 """),
 }
@@ -308,7 +375,105 @@ def h_fixed(probe, g, dev) -> None:
                 "(per row)", lambda: kb.rt_blur_h(x, r, passes), (1920, r, passes))
 
 
-RUNS = {"eedi3_line": eedi3_line, "vcheck": vcheck, "h_fixed": h_fixed}
+def _bd_consts():
+    """BilateralDither's defaults on a 16-bit plane (thr 2.5, flat 0.4): m,
+    wmax, swmin and peak as the op rounds them."""
+    return (float(np.float32(2.5 * 256)), float(np.float32(np.float32(2.5) * np.float32(0.6)
+                                                          * np.float32(256))), 1.0, 65535.0)
+
+
+def subspl(probe, g, dev) -> None:
+    obd = importlib.import_module("vszip_tpu_torch.ops.bilateral_dither")
+    dyx, k = obd._table(16, 0.0, str(dev))
+    for h, w in ((1080, 1920), (540, 960)):
+        x = torch.randint(0, 1 << 16, (64, h, w), generator=g, device=dev,
+                          dtype=torch.int32).to(torch.uint16)
+        start = obd._start_rows(h, str(dev))
+        frames, cols, rows = kbd._subspl_band(x, None, 16, k)
+        label = f"B18 r 16, k {k}, 64x{h}x{w} u16"
+
+        def call():
+            return kbd.subspl_blur(x, None, 16, start, dyx, *_bd_consts())
+        measure("subspl", probe, f"{label}, bands of {frames} frame(s) x {cols} columns x {rows} "
+                "rows (thread 0, per block and frame group)", call)
+
+
+def int8_picture(n, h, w, g, dev):
+    """A smooth pattern that moves a little each frame, noise of +-3 and a
+    band of combed rows (chip_smoke.py's 8-bit picture)."""
+    y = torch.arange(h, device=dev).view(1, h, 1).float()
+    x = torch.arange(w, device=dev).view(1, 1, w).float()
+    f = torch.arange(n, device=dev).view(n, 1, 1).float()
+    v = 128 + 60 * torch.sin(x / 37 + f / 5) * torch.cos(y / 23 - f / 11)
+    v = v + torch.randint(-3, 4, (n, h, w), generator=g, device=dev)
+    v[:, h // 3:2 * h // 3:2] += 40
+    return v.clamp(0, 255).to(torch.uint8)
+
+
+def checkmate(probe, g, dev) -> None:
+    for h, w in ((1080, 1920), (540, 960)):
+        x = int8_picture(64, h, w, g, dev)
+        for tthr2 in (0, 10):
+            label = f"B15 tthr2 {tthr2}, 64x{h}x{w} u8"
+
+            def call():
+                return kk.checkmate(x, 12, 12, tthr2)
+            measure("checkmate", probe, f"{label} (thread 0, per frame)", call,
+                    (int(tthr2 > 0), 1, 0))
+
+
+RUNS = {"eedi3_line": eedi3_line, "vcheck": vcheck, "h_fixed": h_fixed, "subspl": subspl,
+        "checkmate": checkmate}
+# the instantiations the bench's calls launch (B18: uint16, no ref)
+SASS_OF = {"subspl": "subspl_kernelItLb0E", "checkmate": "checkmate_kernel"}
+SASS_LINE = re.compile(r"/\*([0-9a-f]{4,})\*/\s+(?:@!?U?P\w+\s+)?([A-Z][A-Z0-9_]*)[^;]*;")
+
+
+def _mix(ops) -> str:
+    counts = {}
+    for op in ops:
+        counts[op] = counts.get(op, 0) + 1
+    return ", ".join(f"{op} {n}" for op, n in sorted(counts.items(), key=lambda kv: -kv[1]))
+
+
+def sass(lib: str, kernel: str) -> None:
+    """The instruction mix of each instantiation whose mangled name holds
+    `kernel` in the package's build (``cuobjdump -sass``): the whole function, and each loop
+    (a backward branch) of at least 8 instructions, innermost first."""
+    tool = Path(_build._nvcc()).with_name("cuobjdump")
+    text = subprocess.run([str(tool), "-sass", str(_build.library_path(lib))],
+                          capture_output=True, text=True, check=True).stdout
+    for block in text.split("Function : ")[1:]:
+        name = block.split("\n", 1)[0].strip()
+        if kernel not in name:
+            continue
+        code, labels, addr = [], {}, None
+        for line in block.splitlines():
+            m = re.match(r"\s*(\.L_x_\d+):", line)
+            if m:
+                labels[m.group(1)] = None if addr is None else addr + 16
+                continue
+            m = SASS_LINE.search(line)
+            if m:
+                addr = int(m.group(1), 16)
+                code.append((addr, m.group(2), line))
+                for lab, at in labels.items():
+                    if at is None:
+                        labels[lab] = addr
+        print(f"SASS {name[:90]}: {len(code)} instructions: {_mix(op for _, op, _ in code)}")
+        loops = []
+        for at, op, line in code:
+            if op != "BRA":
+                continue
+            t = re.search(r"\(?(\.L_x_\d+)\)?", line)
+            h = re.search(r"BRA\s+(?:\S+\s+)?0x([0-9a-f]+)", line)
+            target = labels.get(t.group(1)) if t else int(h.group(1), 16) if h else None
+            if target is not None and target <= at:
+                loops.append((target, at))
+        for lo, hi in sorted(loops, key=lambda l: l[1] - l[0]):
+            body = [op for a, op, _ in code if lo <= a <= hi]
+            if len(body) >= 8:
+                print(f"  loop {lo:#06x}-{hi:#06x}: {len(body)} instructions: {_mix(body)}")
 
 
 def main() -> int:
@@ -331,6 +496,8 @@ def main() -> int:
         probe = build(lib, instrument(kernel, _build.source(lib).read_text()),
                       f"{kernel}_probe", module._lib())
         print(f"{kernel} registers:", registers(lib, f"{kernel}_kernel"), flush=True)
+        if kernel in SASS_OF:
+            sass(lib, SASS_OF[kernel])
         RUNS[kernel](probe, g, dev)
     return 0
 

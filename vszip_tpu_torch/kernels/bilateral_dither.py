@@ -151,7 +151,9 @@ def _lib() -> ctypes.CDLL:
     # pointers, then dtype, has_ref, n, h, w, r (and k), m, wmax, swmin, peak, stream
     lib.vz_bd_dense.argtypes = [p] * 3 + [i] * 6 + [f] * 4 + [p]
     lib.vz_bd_subspl.argtypes = [p] * 5 + [i] * 7 + [f] * 4 + [p]
+    lib.vz_bd_subspl_band.argtypes = [p] * 2 + [i] * 7 + [p]
     lib.vz_bd_dense.restype = lib.vz_bd_subspl.restype = ctypes.c_int
+    lib.vz_bd_subspl_band.restype = ctypes.c_int
     return lib
 
 
@@ -190,6 +192,19 @@ def _check_table(dyx: torch.Tensor, r: int) -> None:
 
 def _ptrs(x, ref, out):
     return x.data_ptr(), (ref if ref is not None else x).data_ptr(), out.data_ptr()
+
+
+def _subspl_band(x: torch.Tensor, ref: torch.Tensor | None, r: int,
+                k: int) -> tuple[int, int, int] | None:
+    """The block shape ``subspl_blur`` launches on CUDA tensors like these:
+    (frames, columns, rows), or None where it takes the 32x16 tile kernel
+    (tables and radii too large for a band's tile).  Not part of the
+    package's surface: the card tests and tools read the layout with it."""
+    n, h, w = x.shape
+    out = (ctypes.c_int * 3)()
+    band = _lib().vz_bd_subspl_band(x.data_ptr(), (ref if ref is not None else x).data_ptr(),
+                                    _code(x), int(ref is not None), n, h, w, r, k, out)
+    return tuple(out) if band else None
 
 
 # ---------------------------------------------------------------------------
