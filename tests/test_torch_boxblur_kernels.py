@@ -136,3 +136,15 @@ def test_failed_build_raises(monkeypatch, tmp_path):
     with pytest.raises(RuntimeError, match="nvcc"):
         _build.build("boxblur")
     assert not (tmp_path / "build").exists()
+
+
+@pytest.mark.parametrize("radius,passes,on_chip", [
+    (13, 5, True), (23, 1, True), (1, 6, True), (13, 7, False), (1, 100, False),
+    # the largest radius whose rings fit a block's 227 KB, and the next
+    (897, 1, True), (898, 1, False), (179, 5, True), (180, 5, False),
+    (149, 6, True), (150, 6, False), (539, 1, True), (539, 2, False),
+], ids=str)
+def test_v_fixed_takes_the_column_walk_past_the_rings(radius, passes, on_chip):
+    # v_chip keeps passes * (2r + 1) + 20 rows of 128 bytes per warp and
+    # unrolls at most 6 passes; past either the wrapper takes v_fixed's walk
+    assert kt.v_fixed_on_chip(radius, passes) is on_chip

@@ -52,14 +52,29 @@ def cuda():
     return torch.device("cuda")
 
 
+def _bits(t):
+    """`t` as integers holding its bit pattern: floats by their IEEE bits, so
+    -0.0 is not +0.0; integers widened (torch lacks uint16 kernels on some
+    devices)."""
+    if t.is_floating_point():
+        return t.view({2: torch.int16, 4: torch.int32, 8: torch.int64}[t.element_size()])
+    return t.to(torch.int64)
+
+
 def _same(a, b):
-    # uint16 compared as int32: torch lacks uint16 kernels on some devices;
-    # floats as they are, bit for bit
-    if a.dtype != b.dtype or a.shape != b.shape:
-        return False
-    if a.is_floating_point():
-        return torch.equal(a, b)
-    return torch.equal(a.to(torch.int32), b.to(torch.int32))
+    return a.dtype == b.dtype and a.shape == b.shape and torch.equal(_bits(a), _bits(b))
+
+
+@pytest.mark.parametrize("dtype", [torch.float16, torch.float32, torch.float64], ids=str)
+def test_same_compares_floats_bit_for_bit(dtype):
+    # on the CPU: torch.equal holds -0.0 equal to +0.0; _same does not
+    pos = torch.tensor([0.0, 1.5, -2.0], dtype=dtype)
+    neg = torch.tensor([-0.0, 1.5, -2.0], dtype=dtype)
+    assert torch.equal(pos, neg) and not _same(pos, neg)
+    assert _same(neg, neg.clone()) and not _same(pos, pos.to(torch.float64 if dtype != torch.float64
+                                                              else torch.float32))
+    nan = torch.tensor([float("nan")], dtype=dtype)
+    assert not torch.equal(nan, nan) and _same(nan, nan.clone())
 
 
 def _rand(shape, dtype, device, seed=0):
@@ -81,6 +96,57 @@ def test_kernels_match_plain(cuda, shape, dtype):
             assert _same(kb.rt_blur_h(x, r, p), kb.h_fixed_ref(x, r, p))
             assert _same(kb.rt_blur_v_multi(x, r, p), kb.v_fixed_ref(x, r, p))
         assert _same(kb.rt_blur_v(x, r), kb.v_fixed_ref(x, r))
+
+
+# v_chip (B3, B4) runs one warp per 128-byte strip (64 uint16 or 128 uint8
+# columns), copies rows 16 ahead in groups of 4 (16-byte copies where rows
+# are 16-byte aligned, else element loads), and keeps rings of 2r+1 rows per
+# pass and 2r+21 for the input; past 6 passes or 227 KB of rings the
+# wrapper takes the column walk v_fixed
+@pytest.mark.parametrize("dtype", [torch.uint8, torch.uint16], ids=str)
+@pytest.mark.parametrize("w", [1, 2, 7, 8, 9, 15, 16, 17, 63, 64, 65, 127, 128, 129, 1920, 1921,
+                               3840])
+def test_v_fixed_matches_plain_at_strip_widths(cuda, dtype, w):
+    x = _rand((3 if w % 2 else 1, 40, w), dtype, cuda, seed=w)
+    for r in (1, 13, 19):
+        for p in range(1, 8):
+            assert _same(kb.rt_blur_v_multi(x, r, p), kb.v_fixed_ref(x, r, p)), (r, p)
+        assert _same(kb.rt_blur_v(x, r), kb.v_fixed_ref(x, r)), r
+
+
+# heights at 2r+1 and 2r+2, around the input ring (2r+21 rows), where every
+# pass of 5 first runs without a mirror ((5+1)(r+1)-1), at 1080 and 2160;
+# radii 1, 13, 23, 100 and the largest with 2r < h (the walk past 1 pass)
+@pytest.mark.parametrize("dtype", [torch.uint8, torch.uint16], ids=str)
+@pytest.mark.parametrize("r,h", [(1, 3), (1, 4), (1, 22), (1, 23), (1, 24), (13, 27), (13, 28),
+                                 (13, 46), (13, 47), (13, 48), (13, 83), (13, 84), (13, 1080),
+                                 (23, 47), (23, 48), (23, 67), (23, 1080), (23, 2160),
+                                 (100, 201), (100, 202), (100, 1080), (539, 1080),
+                                 (1079, 2160)], ids=str)
+def test_v_fixed_matches_plain_at_heights(cuda, dtype, r, h):
+    x = _rand((3 if h % 2 else 1, h, 144), dtype, cuda, seed=h + r)
+    for p in range(1, 7):
+        assert _same(kb.rt_blur_v_multi(x, r, p), kb.v_fixed_ref(x, r, p)), p
+
+
+@pytest.mark.parametrize("dtype", [torch.uint8, torch.uint16], ids=str)
+@pytest.mark.parametrize("r,passes,on_chip", [(897, 1, True), (898, 1, False), (179, 5, True),
+                                              (180, 5, False), (149, 6, True), (150, 6, False),
+                                              (13, 6, True), (13, 7, False)], ids=str)
+def test_v_fixed_matches_plain_on_both_sides_of_the_walk(cuda, dtype, r, passes, on_chip):
+    x = _rand((2, 2 * r + 2, 144), dtype, cuda, seed=r + passes)
+    assert kb.v_fixed_on_chip(r, passes) is on_chip
+    assert _same(kb.rt_blur_v_multi(x, r, passes), kb.v_fixed_ref(x, r, passes))
+
+
+@pytest.mark.parametrize("dtype", [torch.uint8, torch.uint16], ids=str)
+def test_v_fixed_takes_planes_off_16_byte_alignment(cuda, dtype):
+    """A plane that starts one element past an aligned address: rows of 256
+    bytes, but element loads and stores."""
+    x = _offset(_rand((3, 60, 256 // dtype.itemsize), dtype, cuda, seed=7))
+    assert x.is_contiguous() and x.data_ptr() % 16
+    for r, p in ((1, 1), (13, 5), (23, 1), (29, 6)):
+        assert _same(kb.rt_blur_v_multi(x, r, p), kb.v_fixed_ref(x, r, p)), (r, p)
 
 
 def test_axis_radius_limits_are_per_axis(cuda):
@@ -669,16 +735,41 @@ def test_checkmate_kernel_matches_plain(cuda, shape):
             assert _same(kk.checkmate(x, thr, tmax, tthr2), kk.checkmate_ref(x, thr, tmax, tthr2))
 
 
+# B16: metric 0/1 x motion off/on x expand off/on at cthresh 6, and the
+# thresholds' ends (metric 0 passes nothing from 255 up)
+_COMB = [(6, mt, m1, ex) for m1 in (False, True) for mt in (0, 9) for ex in (False, True)] + [
+    (65025, 9, True, True), (0, 0, True, False), (255, 255, False, True), (0, 1, False, True),
+    (254, 9, False, True), (1000, 9, False, True), (100, 9, True, False)]
+
+
+# a warp owns 120 output columns (4 per lane; lanes 0 and 31 read the
+# columns either side), a block 4 warps, a band of 8 rows, a run of 4
+# frames: widths, heights and frame counts around them (w % 4 != 0: byte
+# loads and stores)
 @pytest.mark.parametrize("shape", [(3, 37, 53), (2, 3, 1), (2, 3, 2), (1, 4, 3), (2, 9, 300),
-                                   (3, 540, 960)], ids=str)
+                                   (3, 540, 960)]
+                         + [(3, 37, w) for w in (1, 2, 3, 4, 5, 119, 120, 121, 239, 240, 241,
+                                                 479, 480, 481, 1921)]
+                         + [(3, h, 130) for h in (3, 4, 5, 7, 8, 9, 15, 16, 17)]
+                         + [(n, 19, 130) for n in (1, 2, 3, 4, 5, 8, 9, 65)], ids=str)
 def test_comb_mask_kernel_matches_plain(cuda, shape):
     for x in (_rand(shape, torch.uint8, cuda, seed=4), _smooth_u8(shape, cuda, 4)):
-        for cthresh, mthresh, metric_1, expand in ((6, 9, False, True), (6, 9, True, True),
-                                                   (6, 0, False, True), (6, 9, False, False),
-                                                   (65025, 9, True, True), (0, 0, True, False),
-                                                   (255, 255, False, True)):
+        for cthresh, mthresh, metric_1, expand in _COMB:
             assert _same(km.comb_mask(x, cthresh, mthresh, metric_1, expand),
-                         km.comb_mask_ref(x, cthresh, mthresh, metric_1, expand))
+                         km.comb_mask_ref(x, cthresh, mthresh, metric_1, expand)), (
+                cthresh, mthresh, metric_1, expand)
+
+
+def test_comb_mask_kernel_takes_planes_off_16_byte_alignment(cuda):
+    """A plane that starts one byte past an aligned address: rows of 256
+    bytes, but byte loads and stores."""
+    n, h, w = 9, 40, 256
+    flat = _smooth_u8((1, 1, n * h * w + 1), cuda, 6).view(-1)
+    x = flat[1:].view(n, h, w)
+    assert x.is_contiguous() and x.data_ptr() % 16 == 1
+    for cthresh, mthresh, metric_1, expand in _COMB:
+        assert _same(km.comb_mask(x, cthresh, mthresh, metric_1, expand),
+                     km.comb_mask_ref(x, cthresh, mthresh, metric_1, expand))
 
 
 # B15's tiles are 128 columns x 32 rows over runs of 8 frames: frames,

@@ -41,10 +41,20 @@ exports the query, and ptxas' registers of the package's build:
   thread 0's cycles per frame at the barrier before it, in issuing the
   next frame's copies and computing, and in waiting for the copies and
   widening them, and per block from its start to its first frame and to
-  its end.
+  its end;
+- ``v_fixed`` (B3 and B4, ``v_chip_kernel``) on the luma of 64 frames of
+  1080p uint16, r 13 with 5 passes and r 23 with 1: lane 0's cycles per
+  step (one input row) in issuing a group's copies, in waiting for a group
+  and the warp, in the groups of 4 steps where no pass mirrors and in those
+  at the edges;
+- ``comb_mask`` (B16, ``comb_mask_kernel``) at CombMask's defaults (metric
+  0, cthresh 6, mthresh 9, expand) on 64 frames of 1080p and 540x960 of the
+  8-bit picture: lane 0's cycles per frame in loading the band's rows and
+  waiting for them, in the band's rows, and the warp's life per frame.
 
-For B18 and B15 it also prints the instruction mix of each instantiation
-and of each of its loops (``cuobjdump -sass`` of the package's build).
+For B18, B15, B3/B4 and B16 it also prints the instruction mix of each
+instantiation and of each of its loops (``cuobjdump -sass`` of the
+package's build).
 
 The anchors are lines of the current sources; an older commit's kernels
 are read with that commit's tool (``git show <commit>:tools/...``).
@@ -67,6 +77,7 @@ from vszip_tpu_torch import _build  # noqa: E402
 from vszip_tpu_torch.kernels import bilateral_dither as kbd  # noqa: E402
 from vszip_tpu_torch.kernels import boxblur as kb  # noqa: E402
 from vszip_tpu_torch.kernels import checkmate as kk  # noqa: E402
+from vszip_tpu_torch.kernels import comb_mask as km  # noqa: E402
 from vszip_tpu_torch.kernels import eedi3 as ke  # noqa: E402
 from vszip_tpu_torch.ops.eedi3 import _pad_rows  # noqa: E402
 
@@ -79,6 +90,7 @@ RCP = (7.96875, 3.984375, 0.25, 4.0)  # vcheck's reciprocals and vthresh2 (32, 6
 
 
 T0 = "threadIdx.x == 0 && threadIdx.y == 0"
+LANE0 = "(threadIdx.x & 31) == 0"  # every warp's lane 0
 
 
 def _add(slot: int, value: str, who: str = "threadIdx.x == 0") -> str:
@@ -168,6 +180,63 @@ extern "C" int vz_probe_occupancy(int w, int r, int passes, int* blocks, int* th
   *threads = hs.threads;
   return (int)cudaOccupancyMaxActiveBlocksPerMultiprocessor(
       blocks, h_fixed_kernel<uint16_t, false>, hs.threads, bytes);
+}
+"""),
+    "v_fixed": ("boxblur", kb, (
+        "issue a copy group", "wait for a group and the warp", "groups of 4 steps where no "
+        "pass mirrors", "groups at the edges (top, bottom)"), (
+        ("  int c0 = 0, t0 = R0 - R, cr = 0;  // s mod R0, (s - R) mod R0, s mod R\n", "",
+         "  long long vc_issue = 0, vc_wait = 0, vc_steady = 0, vc_edge = 0;\n"),
+        ("      __syncwarp();  // every lane is done with the rows the copies overwrite\n",
+         "      const long long vc0 = clock64();\n", ""),
+        ("      if (kVec) cp_async_wait<kAheadGroups>();\n", "      const long long vc1 = clock64();\n",
+         ""),
+        ("      __syncwarp();  // rows s0 .. s0+3 are in ring 0, for every lane\n", "",
+         "      vc_issue += vc1 - vc0;\n      vc_wait += clock64() - vc1;\n"),
+        ("    if (s0 >= s_steady && s0 + kGroupRows <= h) {\n",
+         "    const long long vc2 = clock64();\n"
+         "    const bool vc_st = s0 >= s_steady && s0 + kGroupRows <= h;\n", ""),
+        ("        advance();\n      }\n    }\n", "",
+         "    (vc_st ? vc_steady : vc_edge) += clock64() - vc2;\n"),
+        ("}\n\n// h_fixed's shape for a row of w samples",
+         f"  {_add(0, 'vc_issue')} {_add(1, 'vc_wait')} {_add(2, 'vc_steady')} "
+         f"{_add(3, 'vc_edge')} {_add(SLOTS - 1, 'S')}\n", "")), """
+extern "C" int vz_probe_occupancy(int r, int passes, int unused, int* blocks, int* threads) {
+  const void* k = passes == 5 ? (const void*)v_chip_kernel<uint16_t, 5, true>
+                              : (const void*)v_chip_kernel<uint16_t, 1, true>;
+  *threads = 32;
+  cudaError_t e = cudaFuncSetAttribute(k, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                       (int)v_chip_bytes(r, passes));
+  if (e != cudaSuccess) return (int)e;
+  return (int)cudaOccupancyMaxActiveBlocksPerMultiprocessor(blocks, k, 32,
+                                                            v_chip_bytes(r, passes));
+}
+"""),
+    "comb_mask": ("comb_mask", km, (
+        "load the band's rows and halo and wait", "the band's rows: comb, motion, expand, store",
+        "the warp's life, per frame"), (
+        ("  if (xo >= w) return;  // the whole warp\n", "",
+         "  const long long cm0 = clock64();\n  long long cm_load = 0, cm_rows = 0, cm_n = 0;\n"),
+        ("        load_band<kAligned>(cur, src + f * plane, y0, x, h, w);\n",
+         "        const long long ct0 = clock64();\n",
+         "        {\n          uint32_t dep;\n"
+         "          asm volatile(\"mov.b32 %0, 0;\" : \"=r\"(dep));\n"
+         "#pragma unroll\n          for (int j = 0; j < kBand + 4; ++j) dep ^= cur[j];\n"
+         "          asm volatile(\"\" ::\"r\"(dep));\n        }\n"
+         "        const long long ct1 = clock64();\n        cm_load += ct1 - ct0;\n"),
+        ("        if (kMotion) {\n#pragma unroll\n          for (int j = 0; j < kBand + 4; ++j) "
+         "prev[j] = cur[j];\n        }\n",
+         "        cm_rows += clock64() - ct1;\n        ++cm_n;\n", ""),
+        ("}\n\ntemplate <bool kMetric1, bool kMotion, bool kAligned>\nvoid launch(",
+         f"  {_add(0, 'cm_load', LANE0)} {_add(1, 'cm_rows', LANE0)} "
+         f"{_add(2, 'clock64() - cm0', LANE0)} {_add(SLOTS - 1, 'cm_n', LANE0)}\n", "")), """
+extern "C" int vz_probe_occupancy(int metric_1, int motion, int aligned, int* blocks,
+                                  int* threads) {
+  const void* k = metric_1 ? (const void*)comb_mask_kernel<true, true, true>
+                           : (motion ? (const void*)comb_mask_kernel<false, true, true>
+                                     : (const void*)comb_mask_kernel<false, false, true>);
+  *threads = 32 * kWarps;
+  return (int)cudaOccupancyMaxActiveBlocksPerMultiprocessor(blocks, k, 32 * kWarps, 0);
 }
 """),
     "subspl": ("bilateral_dither", kbd, (
@@ -422,10 +491,31 @@ def checkmate(probe, g, dev) -> None:
                     (int(tthr2 > 0), 1, 0))
 
 
+def v_fixed(probe, g, dev) -> None:
+    x = torch.randint(0, 1 << 16, (64, 1080, 1920), generator=g, device=dev,
+                      dtype=torch.int32).to(torch.uint16)
+    for r, passes in ((13, 5), (23, 1)):
+        def call():
+            return kb.rt_blur_v_multi(x, r, passes) if passes > 1 else kb.rt_blur_v(x, r)
+        measure("v_fixed", probe, f"v_fixed r {r}, {passes} pass(es), 64x1080x1920 u16 "
+                "(lane 0 of each warp, per step)", call, (r, passes, 0))
+
+
+def comb_mask(probe, g, dev) -> None:
+    for h, w in ((1080, 1920), (540, 960)):
+        x = int8_picture(64, h, w, g, dev)
+        measure("comb_mask", probe, f"B16 metric 0, cthresh 6, mthresh 9, expand, 64x{h}x{w} "
+                "u8 (lane 0 of each warp, per frame)",
+                lambda: km.comb_mask(x, 6, 9, False, True), (0, 1, 1))
+
+
 RUNS = {"eedi3_line": eedi3_line, "vcheck": vcheck, "h_fixed": h_fixed, "subspl": subspl,
-        "checkmate": checkmate}
+        "checkmate": checkmate, "v_fixed": v_fixed, "comb_mask": comb_mask}
 # the instantiations the bench's calls launch (B18: uint16, no ref)
-SASS_OF = {"subspl": "subspl_kernelItLb0E", "checkmate": "checkmate_kernel"}
+SASS_OF = {"subspl": "subspl_kernelItLb0E", "checkmate": "checkmate_kernel",
+           "v_fixed": "v_chip_kernelItLi[15]ELb1E", "comb_mask": "comb_mask_kernelILb0ELb1ELb1E"}
+# the kernel function of a table whose name is not <table>_kernel
+FUNCTION = {"v_fixed": "v_chip_kernel"}
 SASS_LINE = re.compile(r"/\*([0-9a-f]{4,})\*/\s+(?:@!?U?P\w+\s+)?([A-Z][A-Z0-9_]*)[^;]*;")
 
 
@@ -445,7 +535,7 @@ def sass(lib: str, kernel: str) -> None:
                           capture_output=True, text=True, check=True).stdout
     for block in text.split("Function : ")[1:]:
         name = block.split("\n", 1)[0].strip()
-        if kernel not in name:
+        if not re.search(kernel, name):
             continue
         code, labels, addr = [], {}, None
         for line in block.splitlines():
@@ -495,7 +585,8 @@ def main() -> int:
         lib, module = KERNELS[kernel][:2]
         probe = build(lib, instrument(kernel, _build.source(lib).read_text()),
                       f"{kernel}_probe", module._lib())
-        print(f"{kernel} registers:", registers(lib, f"{kernel}_kernel"), flush=True)
+        print(f"{kernel} registers:", registers(lib, FUNCTION.get(kernel, f"{kernel}_kernel")),
+              flush=True)
         if kernel in SASS_OF:
             sass(lib, SASS_OF[kernel])
         RUNS[kernel](probe, g, dev)

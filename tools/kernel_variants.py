@@ -1,0 +1,81 @@
+#!/usr/bin/env python3
+"""Times build copies of the port's CUDA sources with other constants against
+the package's own build, on one NVIDIA GPU:
+
+    python3 tools/kernel_variants.py
+
+Each variant replaces one constant line of a source in
+``vszip_tpu_torch/csrc/``, builds the copy with the package's nvcc flags into
+``build/kernel_spans/``, holds its outputs equal to the package's build, and
+times the package and the copy in turns (package, copy, copy, package; CUDA
+events, 10 calls each) at the bench's shapes: BoxBlur's vertical passes
+(B3 at r 13 x 5, B4 at r 23) on 64 frames of 1080p YUV420P16, CombMask (B16)
+at its defaults on 64 frames of 1080p YUV420P8 of ``chip_smoke.py``'s
+8-bit picture.  It prints each variant's mean beside the package's.
+"""
+
+import sys
+from pathlib import Path
+
+import torch
+
+ROOT = Path(__file__).resolve().parent.parent
+sys.path.insert(0, str(ROOT))
+sys.path.insert(0, str(ROOT / "tools"))
+
+import kernel_spans as ks  # noqa: E402
+from vszip_tpu_torch import _build  # noqa: E402
+from vszip_tpu_torch.kernels import boxblur as kb  # noqa: E402
+from vszip_tpu_torch.kernels import comb_mask as km  # noqa: E402
+
+# (library, the constant's line in the package's source, its replacement,
+# the calls it is timed on)
+VARIANTS = [
+    ("comb_mask", "constexpr int kBand = 8; ", "constexpr int kBand = 4; ", "B16"),
+    ("comb_mask", "constexpr int kBand = 8; ", "constexpr int kBand = 12;", "B16"),
+    ("comb_mask", "constexpr int kBand = 8; ", "constexpr int kBand = 16;", "B16"),
+    ("comb_mask", "constexpr int kRun = 4;", "constexpr int kRun = 8;", "B16"),
+    ("comb_mask", "constexpr int kRun = 4;", "constexpr int kRun = 16;", "B16"),
+    ("comb_mask", "constexpr int kWarps = 4;", "constexpr int kWarps = 8;", "B16"),
+    ("boxblur", "constexpr int kAheadGroups = 4;", "constexpr int kAheadGroups = 2;", "B3"),
+    ("boxblur", "constexpr int kAheadGroups = 4;", "constexpr int kAheadGroups = 8;", "B3"),
+    ("boxblur", "constexpr int kAheadGroups = 4;", "constexpr int kAheadGroups = 2;", "B4"),
+    ("boxblur", "constexpr int kAheadGroups = 4;", "constexpr int kAheadGroups = 8;", "B4"),
+]
+
+
+def main() -> int:
+    if not torch.cuda.is_available():
+        print("kernel_variants: no CUDA device", file=sys.stderr)
+        return 1
+    ks.OUT.mkdir(parents=True, exist_ok=True)
+    _build.build("boxblur", "comb_mask")
+    dev = torch.device("cuda", 0)
+    g = torch.Generator(device=dev).manual_seed(0)
+    p16 = [torch.randint(0, 1 << 16, s, generator=g, device=dev, dtype=torch.int32)
+           .to(torch.uint16) for s in ((64, 1080, 1920), (64, 540, 960), (64, 540, 960))]
+    p8 = [ks.int8_picture(64, h, w, g, dev) for h, w in ((1080, 1920), (540, 960), (540, 960))]
+    calls = {"B16": (km, lambda: [km.comb_mask(p, 6, 9, False, True) for p in p8]),
+             "B3": (kb, lambda: [kb.rt_blur_v_multi(p, 13, 5) for p in p16]),
+             "B4": (kb, lambda: [kb.rt_blur_v(p, 23) for p in p16])}
+    built = {}
+    for lib, old, new, which in VARIANTS:
+        module, call = calls[which]
+        src = _build.source(lib).read_text()
+        if src.count(old) != 1:
+            raise SystemExit(f"kernel_variants: {lib}: not found once: {old!r}")
+        if (lib, new) not in built:
+            built[lib, new] = ks.build(lib, src.replace(old, new), f"variant_{len(built)}",
+                                      module._lib())
+        copy = built[lib, new]
+        if not ks._same(tuple(ks.using(module, copy, call)), tuple(call())):
+            raise SystemExit(f"kernel_variants: {new!r} disagrees with the package")
+        t = [ks.events_ms(call, 10), ks.events_ms(lambda: ks.using(module, copy, call), 10),
+             ks.events_ms(lambda: ks.using(module, copy, call), 10), ks.events_ms(call, 10)]
+        print(f"{which} {new.strip()}: {(t[1] + t[2]) / 2:.3f} ms against the package's "
+              f"{(t[0] + t[3]) / 2:.3f} ms ({', '.join(f'{v:.3f}' for v in t)})", flush=True)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -1,9 +1,12 @@
 // BoxBlur integer kernels for Hopper (sm_90a), the CUDA counterparts of the
 // Pallas kernels in vszip_tpu/kernels/boxblur_pallas.py.
 //
-// Three kernels, each exact to the reference's integer arithmetic:
-//   v_fixed     runtime vertical fixed-point pass(es)      (B3 rt_blur_v_multi_pallas,
-//                                                           B4 rt_blur_v_pallas)
+// Four kernels, each exact to the reference's integer arithmetic:
+//   v_chip      runtime vertical fixed-point pass(es)      (B3 rt_blur_v_multi_pallas,
+//               on chip (up to 6 passes, rings in shared    B4 rt_blur_v_pallas)
+//               memory)
+//   v_fixed     the same as a column walk, for what v_chip
+//               does not take (more passes, larger rings)
 //   h_fixed     runtime horizontal fixed-point pass(es)    (B2 rt_blur_h_pallas, and
 //                                                           the H stage of B1)
 //   ct_v_quant  comptime vertical column sums, quantised   (V stage of B1
@@ -28,6 +31,11 @@
 // (62 steps per 1920-wide row and pass), was held by that chain's latency,
 // not by its work; it now cuts each row into one segment per thread of a
 // block, so the only scan is one per row and pass (see h_fixed_kernel).
+// v_fixed's column walk, one thread per column, rows loaded 8 ahead and
+// every pass through device memory, reached about 1.3 TB/s and read and
+// wrote the plane once per pass: v_chip runs all passes of a 128-byte
+// strip in one warp as a wavefront, so the plane is read and written once
+// per call (see v_chip_kernel).
 //
 // Plain C interface, loaded with ctypes.  Every entry launches on the given
 // stream, does not synchronise, allocates nothing, and returns
@@ -52,6 +60,17 @@ constexpr int kSeg = 8;
 constexpr int kMaxRowThreads = 1024;
 constexpr size_t kMaxSmemBytes = 232448;
 constexpr long long kScratchBlocks = 264;
+// v_chip: the most passes it unrolls, the rows of one copy group (32 lanes
+// x 16 bytes = 4 rows of a warp's 128-byte strip), and the groups in flight
+// ahead of the row being consumed.  A warp's rings hold
+// passes * (2r + 1) + kChipAheadRows rows of kStripBytes; the wrapper takes
+// the column walk where they pass kMaxSmemBytes (kernels/boxblur.py
+// v_fixed_on_chip holds the same numbers).
+constexpr int kChipPasses = 6;
+constexpr int kGroupRows = 4;
+constexpr int kAheadGroups = 4;
+constexpr int kChipAheadRows = (kAheadGroups + 1) * kGroupRows;
+constexpr int kStripBytes = 128;
 
 __device__ __forceinline__ int mirror_dup(int k, int n) {
   return k < 0 ? -k - 1 : (k >= n ? 2 * n - 1 - k : k);
@@ -130,6 +149,231 @@ __global__ void v_fixed_kernel(const T* in, T* out, T* scratch, int n, int h,
       T* dst = (((passes - 1 - p) & 1) == 0 ? out : scratch) + base;
       v_pass(src, dst, h, w, r, inv, inv2);
       src = dst;
+    }
+  }
+}
+
+__device__ __forceinline__ void cp_async16(void* dst, const void* src) {
+  const unsigned d = (unsigned)__cvta_generic_to_shared(dst);
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(d), "l"(src));
+}
+
+__device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n" ::); }
+
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+// One 32-bit word of a row: K samples of T.
+template <typename T>
+struct Word {
+  static constexpr int K = 4 / sizeof(T);
+  static __device__ __forceinline__ uint32_t at(uint32_t v, int i) {
+    return sizeof(T) == 2 ? (i ? v >> 16 : v & 0xffffu) : (v >> (8 * i)) & 0xffu;
+  }
+  // the outputs o[i] (bits 16.. of each) packed into one word
+  static __device__ __forceinline__ uint32_t pack(const uint32_t* o) {
+    if (sizeof(T) == 2) return __byte_perm(o[0], o[1], 0x7632);
+    return __byte_perm(__byte_perm(o[0], o[1], 0x0062), __byte_perm(o[2], o[3], 0x0062), 0x5410);
+  }
+};
+
+__device__ __forceinline__ int wrap(int v, int n) {
+  v %= n;
+  return v < 0 ? v + n : v;
+}
+
+// v_fixed on chip: all P passes of one strip of 128 bytes of one frame's
+// rows (64 uint16 or 128 uint8 columns) in one warp, lane l on word l of
+// each row, one warp per block.  The passes run as a wavefront down the
+// strip: at step s pass p takes its input row L = s - p(r+1) (its lead) and
+// gives its output row L - r - 1, which is pass p+1's lead at the same step,
+// so a row goes through all passes in registers and only the last pass
+// writes device memory.  Pass p's window needs its input 2r+1 rows back
+// (the trail) and, past the bottom, the mirrored rows, so each pass keeps a
+// ring of its last 2r+1 input rows in shared memory, lane l reading and
+// writing only its own words (no barrier).  The input's ring (ring 0) is
+// filled ahead of the steps by 16-byte cp.async copies, kGroupRows rows a
+// group and kAheadGroups groups (16 rows) in flight, lane l copying chunk
+// l % 8 of row l / 8 of a group, so the ring is waited for and the warp
+// synchronised once a group; a plane whose rows are not 16-byte aligned
+// loads its chunks by elements into registers a group ahead instead.  Pass p >= 1 keeps its
+// row L at slot (L + p(r+1)) mod (2r+1), so at step s every pass reads its
+// trail from, and writes its lead to, slot s mod (2r+1).  The output
+// (C0 + inv2*(W - W0)) >> 16 cast to T is (k0 + inv2*W) >> 16 mod 2^16 (or
+// 2^8), so only the low 32 bits of k0 = C0 - inv2*W0 are kept.  Offsets
+// inside a plane are 32-bit; pointers advance by rows.  At each step the
+// window updates of the passes are independent (pass p's output at step s
+// needs only its own sum of step s-1), so they overlap.
+template <typename T, int P, bool kVec>
+__global__ void __launch_bounds__(32)
+    v_chip_kernel(const T* __restrict__ in, T* __restrict__ out, int h, int w, int r, int strips,
+                  long long inv, uint32_t inv2) {
+  using Wd = Word<T>;
+  constexpr int K = Wd::K, E = 16 / sizeof(T);  // samples per word, per 16-byte chunk
+  extern __shared__ uint32_t ring[];
+  const int lane = threadIdx.x;
+  const int R = 2 * r + 1, R0 = R + kChipAheadRows;
+  uint32_t* ring0 = ring;             // R0 input rows of 32 words
+  uint32_t* rings = ring + R0 * 32;   // R slots of P-1 rows: pass p's at word (p-1)*32
+  const int f = blockIdx.x / strips, strip = blockIdx.x - f * strips;
+  const size_t base = (size_t)f * h * w;
+  const int x0 = strip * 32 * K;
+  const int xl = x0 + lane * K;  // this lane's first column
+  // this lane's chunk of a copy group: row lane / 8, columns cx .. cx + E - 1
+  const int crow = lane >> 3, cx = x0 + (lane & 7) * E;
+  const T* csrc = in + base + crow * w + cx;  // its first group's chunk
+  uint32_t* cdst = ring0 + crow * 32 + (lane & 7) * 4;
+  T* orow = out + base + xl;  // the next output row's word
+  int cslot = 0;              // ring 0 slot of the next group's first row
+  uint4 pend;                 // element loads: the chunk of the last group issued
+  uint32_t* pend_dst = nullptr;
+
+  // group g's copies into ring 0; element loads store the previous group's
+  // chunk now and load this one into `pend`
+  auto issue = [&](int g) {
+    const int row = g * kGroupRows + crow;
+    uint32_t* d = cdst + (cslot + crow >= R0 ? cslot - R0 : cslot) * 32;
+    if (kVec) {
+      if (row < h && cx < w) cp_async16(d, csrc);
+      cp_async_commit();
+    } else {
+      if (pend_dst != nullptr) *reinterpret_cast<uint4*>(pend_dst) = pend;
+      pend_dst = nullptr;
+      if (row < h) {
+        uint32_t v[4] = {0, 0, 0, 0};
+#pragma unroll
+        for (int i = 0; i < E; ++i) {
+          if (cx + i < w) v[i / K] |= (uint32_t)csrc[i] << (8 * sizeof(T) * (i % K));
+        }
+        pend = make_uint4(v[0], v[1], v[2], v[3]);
+        pend_dst = d;
+      }
+    }
+    csrc += (uint32_t)kGroupRows * w;
+    cslot += kGroupRows;
+    if (cslot >= R0) cslot -= R0;
+  };
+  auto store = [&](uint32_t v) {
+    if (kVec) {
+      if (xl < w) *reinterpret_cast<uint32_t*>(orow) = v;
+    } else {
+#pragma unroll
+      for (int k = 0; k < K; ++k) {
+        if (xl + k < w) orow[k] = (T)Wd::at(v, k);
+      }
+    }
+    orow += w;
+  };
+
+  uint32_t wx[P][K], k0[P][K];
+#pragma unroll
+  for (int p = 0; p < P; ++p) {
+#pragma unroll
+    for (int k = 0; k < K; ++k) wx[p][k] = k0[p][k] = 0;
+  }
+  int c0 = 0, t0 = R0 - R, cr = 0;  // s mod R0, (s - R) mod R0, s mod R
+  auto advance = [&]() {
+    c0 = c0 + 1 == R0 ? 0 : c0 + 1;
+    t0 = t0 + 1 == R0 ? 0 : t0 + 1;
+    cr = cr + 1 == R ? 0 : cr + 1;
+  };
+  // a step at which no pass mirrors: every pass reads its trail from and
+  // writes its lead to slot s mod R of its ring
+  auto steady = [&]() {
+    uint32_t* rs = rings + cr * ((P - 1) * 32) + lane;
+    uint32_t lead = ring0[c0 * 32 + lane], trail = ring0[t0 * 32 + lane];
+#pragma unroll
+    for (int p = 0; p < P; ++p) {
+      if (p > 0) {
+        trail = rs[(p - 1) * 32];
+        rs[(p - 1) * 32] = lead;
+      }
+      uint32_t o[K];
+#pragma unroll
+      for (int k = 0; k < K; ++k) {
+        o[k] = k0[p][k] + inv2 * wx[p][k];
+        wx[p][k] += Wd::at(lead, k) - Wd::at(trail, k);
+      }
+      lead = Wd::pack(o);
+    }
+    store(lead);
+  };
+  // a step at the top or the bottom: passes that have not started or are
+  // done skip it, the others take their window sum W0 or mirror
+  const int hb0 = (2 * h - 1) % R0, hb = (2 * h - 1) % R;
+  auto edge = [&](int s) {
+    uint32_t* rs = rings + cr * ((P - 1) * 32) + lane;
+    uint32_t carry = 0;  // pass p-1's output row at this step: pass p's lead
+#pragma unroll
+    for (int p = 0; p < P; ++p) {
+      const int L = s - p * (r + 1);
+      if (L < 0 || L > h + r) continue;
+      uint32_t* rp = rings + (p - 1) * 32 + lane;  // pass p's ring, slot 0 (p >= 1)
+      uint32_t lead;
+      if (L <= h - 1) {
+        lead = p == 0 ? ring0[c0 * 32 + lane] : carry;
+      } else {  // row 2h-1-L
+        lead = p == 0 ? ring0[wrap(hb0 - c0, R0) * 32 + lane]
+                      : rp[wrap(hb + p - cr, R) * ((P - 1) * 32)];
+      }
+      if (L <= r) {  // W0 = rows 0 .. r plus rows 0 .. r-1
+#pragma unroll
+        for (int k = 0; k < K; ++k) wx[p][k] += (L < r ? 2u : 1u) * Wd::at(lead, k);
+        if (p > 0) rs[(p - 1) * 32] = lead;
+        if (L == r) {
+#pragma unroll
+          for (int k = 0; k < K; ++k) {
+            k0[p][k] = (uint32_t)(fixed_c0(wx[p][k], inv) - (long long)inv2 * wx[p][k]);
+          }
+        }
+        continue;
+      }
+      const int y = L - r - 1;  // the output row
+      uint32_t o[K];
+#pragma unroll
+      for (int k = 0; k < K; ++k) o[k] = k0[p][k] + inv2 * wx[p][k];
+      uint32_t trail;  // row y - r, mirrored above the top to r - 1 - y
+      if (y >= r) {
+        trail = p == 0 ? ring0[t0 * 32 + lane] : rs[(p - 1) * 32];
+      } else {
+        trail = p == 0 ? ring0[(2 * r - s) * 32 + lane] : rp[wrap(p - 1 - cr, R) * ((P - 1) * 32)];
+      }
+      if (p > 0 && L <= h - 1) rs[(p - 1) * 32] = lead;
+#pragma unroll
+      for (int k = 0; k < K; ++k) wx[p][k] += Wd::at(lead, k) - Wd::at(trail, k);
+      carry = Wd::pack(o);
+      if (p == P - 1) store(carry);
+    }
+  };
+
+  for (int g = 0; g < kAheadGroups; ++g) issue(g);
+  const int S = h + P * (r + 1);                // steps: the last pass gives row h-1 at S-1
+  const int s_steady = (P + 1) * (r + 1) - 1;  // from here to h-1 no pass mirrors
+  for (int s0 = 0; s0 < S; s0 += kGroupRows) {
+    if (s0 < h) {
+      __syncwarp();  // every lane is done with the rows the copies overwrite
+      issue(s0 / kGroupRows + kAheadGroups);
+      if (kVec) cp_async_wait<kAheadGroups>();
+      __syncwarp();  // rows s0 .. s0+3 are in ring 0, for every lane
+    }
+    if (s0 >= s_steady && s0 + kGroupRows <= h) {
+#pragma unroll
+      for (int i = 0; i < kGroupRows; ++i) {
+        steady();
+        advance();
+      }
+    } else {
+#pragma unroll 1
+      for (int s = s0; s < s0 + kGroupRows && s < S; ++s) {
+        if (s >= s_steady && s < h) {
+          steady();
+        } else {
+          edge(s);
+        }
+        advance();
+      }
     }
   }
 }
@@ -440,6 +684,10 @@ int launch_v_fixed(const void* in, void* out, void* scratch, int n, int h, int w
   return (int)cudaGetLastError();
 }
 
+size_t v_chip_bytes(int r, int passes) {
+  return ((size_t)passes * (2 * r + 1) + kChipAheadRows) * kStripBytes;
+}
+
 // Words of global scratch h_fixed needs for these rows: 0 when a block's
 // buffers fit its shared memory, else one slice per block of a grid of at
 // most kScratchBlocks.
@@ -519,6 +767,48 @@ int launch_h_fixed(const void* in, void* out, void* scratch, long long rows, int
   return (int)cudaGetLastError();
 }
 
+template <typename T, int P>
+int launch_v_chip_p(const void* in, void* out, int n, int h, int w, int r, cudaStream_t s) {
+  long long inv, inv2;
+  fixed_constants(r, &inv, &inv2);
+  const int cols = kStripBytes / sizeof(T);
+  const long long strips = (w + cols - 1) / cols, blocks = n * strips;
+  const size_t bytes = v_chip_bytes(r, P);
+  if (bytes > kMaxSmemBytes || blocks > 0x7fffffffLL) return (int)cudaErrorInvalidValue;
+  if (blocks == 0) return 0;
+  // 16-byte copies where every row starts on 16 bytes, element loads else
+  const bool vec = (uintptr_t)in % 16 == 0 && (uintptr_t)out % 16 == 0 &&
+                   (size_t)w * sizeof(T) % 16 == 0;
+  const void* kernel = vec ? reinterpret_cast<const void*>(v_chip_kernel<T, P, true>)
+                           : reinterpret_cast<const void*>(v_chip_kernel<T, P, false>);
+  long long resident;  // sets the kernel's dynamic shared memory allowance
+  const cudaError_t e = resident_blocks(kernel, 32, bytes, &resident);
+  if (e != cudaSuccess) return (int)e;
+  if (vec) {
+    v_chip_kernel<T, P, true><<<(unsigned)blocks, 32, bytes, s>>>(
+        (const T*)in, (T*)out, h, w, r, (int)strips, inv, (uint32_t)inv2);
+  } else {
+    v_chip_kernel<T, P, false><<<(unsigned)blocks, 32, bytes, s>>>(
+        (const T*)in, (T*)out, h, w, r, (int)strips, inv, (uint32_t)inv2);
+  }
+  return (int)cudaGetLastError();
+}
+
+template <typename T>
+int launch_v_chip(const void* in, void* out, int n, int h, int w, int r, int passes,
+                  cudaStream_t s) {
+  static_assert(kChipPasses == 6, "one case per pass count");
+  switch (passes) {
+    case 1: return launch_v_chip_p<T, 1>(in, out, n, h, w, r, s);
+    case 2: return launch_v_chip_p<T, 2>(in, out, n, h, w, r, s);
+    case 3: return launch_v_chip_p<T, 3>(in, out, n, h, w, r, s);
+    case 4: return launch_v_chip_p<T, 4>(in, out, n, h, w, r, s);
+    case 5: return launch_v_chip_p<T, 5>(in, out, n, h, w, r, s);
+    case 6: return launch_v_chip_p<T, 6>(in, out, n, h, w, r, s);
+    default: return (int)cudaErrorInvalidValue;
+  }
+}
+
 template <typename T>
 int launch_ct_v_quant(const void* in, void* out, int n, int h, int w, int r,
                       cudaStream_t s) {
@@ -539,6 +829,15 @@ int vz_v_fixed(const void* in, void* out, void* scratch, int elem_bytes, int n,
   return elem_bytes == 1
              ? launch_v_fixed<uint8_t>(in, out, scratch, n, h, w, r, passes, s)
              : launch_v_fixed<uint16_t>(in, out, scratch, n, h, w, r, passes, s);
+}
+
+// v_fixed on chip (passes <= 6, v_chip_bytes(r, passes) <= kMaxSmemBytes):
+// the plane read once and written once, no scratch.
+int vz_v_chip(const void* in, void* out, int elem_bytes, int n, int h, int w, int r, int passes,
+              void* stream) {
+  cudaStream_t s = (cudaStream_t)stream;
+  return elem_bytes == 1 ? launch_v_chip<uint8_t>(in, out, n, h, w, r, passes, s)
+                         : launch_v_chip<uint16_t>(in, out, n, h, w, r, passes, s);
 }
 
 // The uint32 words of scratch vz_h_fixed needs (0: none; pass null).

@@ -14,8 +14,8 @@ wrapper                replaces (vszip_tpu/kernels/boxblur_pallas.py)   CUDA ker
 =====================  ==============================================  ==========
 ``ct_blur_int``        ``ct_blur_int_pallas`` (:279)                   ct_v_quant, h_fixed
 ``rt_blur_h``          ``rt_blur_h_pallas`` (:670)                     h_fixed
-``rt_blur_v_multi``    ``rt_blur_v_multi_pallas`` (:580)               v_fixed
-``rt_blur_v``          ``rt_blur_v_pallas`` (:432)                     v_fixed
+``rt_blur_v_multi``    ``rt_blur_v_multi_pallas`` (:580)               v_chip (v_fixed)
+``rt_blur_v``          ``rt_blur_v_pallas`` (:432)                     v_chip (v_fixed)
 =====================  ==============================================  ==========
 
 What bounds them on an H100 is device-memory bytes: a pass reads and writes
@@ -24,16 +24,21 @@ and does a few integer operations per byte.  The Pallas kernels are shaped by
 what the TPU lacks (bf16 band matmuls on the MXU, hi/lo byte splits, u32
 limbs, 64-row strips with clamped neighbour views); the CUDA kernels keep
 only the arithmetic: native int32/int64 running and prefix sums, with a
-warp's loads on neighbouring addresses.  ``v_fixed`` walks one column per
-thread (coalesced across the warp, rows loaded 8 ahead), ``h_fixed`` puts one
-mirror-padded row per block in shared memory, cuts it into segments of 8
-samples, one per thread (segment sums, one block scan, sliding sums along
-each segment), and runs all passes there (a row too long for shared memory
-uses a global scratch buffer that the wrapper allocates, with the same
-arithmetic), and ``ct_v_quant``
-is ``v_fixed``'s walk with the comptime mirror and quantiser.  Multi-pass V
-ping-pongs each column through device memory, and B1 runs as two launches;
-fusing those is later work.
+warp's loads on neighbouring addresses.  ``v_chip`` runs all vertical
+passes of a 128-byte strip of columns in one warp as a wavefront down the
+strip (pass p trails pass p-1 by r+1 rows, each keeps its last 2r+1 input
+rows in a shared-memory ring, the input comes in by 16-byte ``cp.async``
+copies 16 rows ahead), so the plane is read and written once per call;
+where its rings would not fit a block's shared memory, or for more than
+``V_CHIP_PASSES`` passes (``v_fixed_on_chip``), ``v_fixed`` walks one column
+per thread and ping-pongs the passes through device memory.  ``h_fixed``
+puts one mirror-padded row per block in shared memory, cuts it into
+segments of 8 samples, one per thread (segment sums, one block scan,
+sliding sums along each segment), and runs all passes there (a row too long
+for shared memory uses a global scratch buffer that the wrapper allocates,
+with the same arithmetic), and ``ct_v_quant`` is ``v_fixed``'s walk with
+the comptime mirror and quantiser.  B1 runs as two launches; fusing those is
+later work.
 """
 
 from __future__ import annotations
@@ -54,6 +59,23 @@ LAUNCHES = {"ct_blur_int": 0, "rt_blur_h": 0, "rt_blur_v_multi": 0,
 def reset_launches() -> None:
     for k in LAUNCHES:
         LAUNCHES[k] = 0
+
+
+# ``v_chip`` (csrc/boxblur.cu) unrolls up to V_CHIP_PASSES passes, and one
+# warp keeps passes * (2r + 1) + V_CHIP_AHEAD_ROWS rows of a 128-byte strip
+# in shared memory, at most MAX_SMEM_BYTES a block (the kernel's
+# kChipPasses, kChipAheadRows, kStripBytes and kMaxSmemBytes).
+V_CHIP_PASSES = 6
+V_CHIP_AHEAD_ROWS = 20
+V_CHIP_ROW_BYTES = 128
+MAX_SMEM_BYTES = 232448
+
+
+def v_fixed_on_chip(radius: int, passes: int) -> bool:
+    """Whether ``v_chip`` takes `passes` vertical passes of `radius`; else
+    the wrapper takes the column walk ``v_fixed``."""
+    rows = passes * (2 * radius + 1) + V_CHIP_AHEAD_ROWS
+    return passes <= V_CHIP_PASSES and rows * V_CHIP_ROW_BYTES <= MAX_SMEM_BYTES
 
 
 # ---------------------------------------------------------------------------
@@ -162,11 +184,12 @@ def _lib() -> ctypes.CDLL:
     lib = _build.load("boxblur")
     p, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
     lib.vz_v_fixed.argtypes = [p, p, p, i, i, i, i, i, i, p]
+    lib.vz_v_chip.argtypes = [p, p, i, i, i, i, i, i, p]
     lib.vz_h_fixed.argtypes = [p, p, p, i, ll, i, i, i, p]
     lib.vz_h_fixed_scratch_words.argtypes = [ll, i, i]
     lib.vz_h_fixed_scratch_words.restype = ll
     lib.vz_ct_v_quant.argtypes = [p, p, i, i, i, i, i, p]
-    for fn in (lib.vz_v_fixed, lib.vz_h_fixed, lib.vz_ct_v_quant):
+    for fn in (lib.vz_v_fixed, lib.vz_v_chip, lib.vz_h_fixed, lib.vz_ct_v_quant):
         fn.restype = ctypes.c_int
     return lib
 
@@ -193,11 +216,15 @@ def _check(x: torch.Tensor, radius: int, axes: tuple[int, ...], passes: int = 1)
 def _v_fixed(x: torch.Tensor, radius: int, passes: int) -> torch.Tensor:
     n, h, w = x.shape
     out = torch.empty_like(x)
-    scratch = torch.empty_like(x) if passes > 1 else None
     with torch.cuda.device(x.device):
-        _build.check(_lib().vz_v_fixed, x.data_ptr(), out.data_ptr(),
-                     None if scratch is None else scratch.data_ptr(), x.element_size(),
-                     n, h, w, radius, passes, _build.stream(x))
+        if v_fixed_on_chip(radius, passes):
+            _build.check(_lib().vz_v_chip, x.data_ptr(), out.data_ptr(), x.element_size(),
+                         n, h, w, radius, passes, _build.stream(x))
+        else:
+            scratch = torch.empty_like(x) if passes > 1 else None
+            _build.check(_lib().vz_v_fixed, x.data_ptr(), out.data_ptr(),
+                         None if scratch is None else scratch.data_ptr(), x.element_size(),
+                         n, h, w, radius, passes, _build.stream(x))
     return out
 
 
