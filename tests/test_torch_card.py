@@ -366,10 +366,10 @@ def test_eedi3_kernels_match_plain(cuda, w, mdis, nrad, smooth):
     for bm in (None, mask):
         out, fp = ke.eedi3_fused(*rows, w, mdis, nrad, a, b, g, om, bm)
         ro, rf = ke.eedi3_fused_ref(*rows, w, mdis, nrad, a, b, g, om, bm)
-        assert torch.equal(fp, rf) and torch.equal(out, ro)
+        assert torch.equal(fp, rf) and _same(out, ro)
     out, fp = ke.eedi3_fused_hp(*rows, w, mdis, nrad, a, b, g, om)
     ro, rf = ke.eedi3_fused_hp_ref(*rows, w, mdis, nrad, a, b, g, om)
-    assert torch.equal(fp, rf) and torch.equal(out, ro)
+    assert torch.equal(fp, rf) and _same(out, ro)
 
 
 @pytest.mark.parametrize("hp", [False, True])
@@ -389,7 +389,7 @@ def test_eedi3_kernels_match_plain_on_ties(cuda, hp):
         pairs = [(ke.eedi3_fused(*rows, w, 6, 2, a, 0.0, 0.0, om, bm),
                   ke.eedi3_fused_ref(*rows, w, 6, 2, a, 0.0, 0.0, om, bm)) for bm in (None, mask)]
     for (out, fp), (ro, rf) in pairs:
-        assert torch.equal(fp, rf) and torch.equal(out, ro)
+        assert torch.equal(fp, rf) and _same(out, ro)
 
 
 def _vcheck_inputs(n_off, b, w, drange, device, seed):
@@ -426,7 +426,7 @@ def test_vcheck_kernel_matches_plain(cuda, hp, mode, n_off, b, w, mdis):
     rc = [float(np.float32(v)) for v in (255 / 32, 255 / 64, 1 / 4, 4)]
     got = ke.vcheck(*args, w, mdis, hp, mode, *rc)
     want = ke.vcheck_ref(*args, w, mdis, hp, mode, *rc)
-    assert torch.equal(got, want)
+    assert _same(got, want)
 
 
 @pytest.mark.parametrize("hp", [False, True])
@@ -436,7 +436,7 @@ def test_vcheck_kernel_takes_wide_rows(cuda, hp, w):
     # widest row the first design took), a cluster of 16 blocks
     args = _vcheck_inputs(3, 2, w, 80 if hp else 40, cuda, w + hp)
     rc = [float(np.float32(v)) for v in (255 / 32, 255 / 64, 1 / 4, 4)]
-    assert torch.equal(ke.vcheck(*args, w, 40, hp, 2, *rc), ke.vcheck_ref(*args, w, 40, hp, 2, *rc))
+    assert _same(ke.vcheck(*args, w, 40, hp, 2, *rc), ke.vcheck_ref(*args, w, 40, hp, 2, *rc))
 
 
 def _offset(t):
@@ -451,8 +451,8 @@ def test_kernels_take_unaligned_rows(cuda):
     args = [_offset(t) for t in _vcheck_inputs(5, 3, 1920, 20, cuda, 1)]
     rc = [float(np.float32(v)) for v in (255 / 32, 255 / 64, 1 / 4, 4)]
     assert args[0].data_ptr() % 16
-    assert torch.equal(ke.vcheck(*args, 1920, 20, False, 2, *rc),
-                       ke.vcheck_ref(*args, 1920, 20, False, 2, *rc))
+    assert _same(ke.vcheck(*args, 1920, 20, False, 2, *rc),
+                 ke.vcheck_ref(*args, 1920, 20, False, 2, *rc))
     for dtype in (torch.uint8, torch.uint16):
         x = _offset(_rand((2, 16, 1920), dtype, cuda, seed=3))
         for p in (1, 3):
@@ -467,8 +467,8 @@ def test_vcheck_takes_directions_past_the_halo(cuda, hp, w, mdis):
     # from device memory, behind a cluster barrier on the lines that need it
     args = _vcheck_inputs(9, 3, w, max(w // 2, 4 * mdis), cuda, 5 + w + hp)
     rc = [float(np.float32(v)) for v in (255 / 32, 255 / 64, 1 / 4, 4)]
-    assert torch.equal(ke.vcheck(*args, w, mdis, hp, 2, *rc),
-                       ke.vcheck_ref(*args, w, mdis, hp, 2, *rc))
+    assert _same(ke.vcheck(*args, w, mdis, hp, 2, *rc),
+                 ke.vcheck_ref(*args, w, mdis, hp, 2, *rc))
 
 
 @pytest.mark.parametrize("fn,fmt,args", [
@@ -504,7 +504,7 @@ def test_eedi3_on_card_matches_cpu(cuda, fn, fmt, args):
     assert sum(ke.LAUNCHES.values()) > 0 or hp_mask
     want = getattr(vt, fn)(cpu, **args)
     for g, w in zip(got.planes, want.planes):
-        assert g.is_cuda and g.shape == w.shape and torch.equal(g.cpu(), w)
+        assert g.is_cuda and _same(g.cpu(), w)
 
 
 def test_eedi3_wrappers_reject_what_kernels_do_not_take(cuda):
@@ -537,23 +537,87 @@ def test_xpsnr_kernels_match_plain(cuda, shape, dtype, peak):
     for order, temporal in ((1, True), (2, True), (1, False)):
         for k, r in zip(kx.luma_stats(org, rec, order, temporal),
                         kx.luma_stats_ref(org, rec, order, temporal)):
-            assert k.dtype == torch.float64 and torch.equal(k, r)
+            assert k.dtype == torch.float64 and _same(k, r)
     for by, bx in ((32, 32), (64, 32), (8, 16), (3, 7)):
-        assert torch.equal(kx.chroma_sse(org, rec, by, bx), kx.chroma_sse_ref(org, rec, by, bx))
+        assert _same(kx.chroma_sse(org, rec, by, bx), kx.chroma_sse_ref(org, rec, by, bx))
 
 
+def _ssim_inputs(shape, device):
+    """B13's input pairs: uniform noise, identical planes (every error map
+    value is +-0, the SSIM map 0), and both near 0 and near 1e3."""
+    g = torch.Generator(device=device).manual_seed(sum(shape))
+    im1, im2 = (torch.rand(shape, generator=g, device=device) for _ in range(2))
+    return [("noise", im1, im2), ("identical", im1, im1.clone()),
+            ("near 0", im1 * 1e-6, im2 * 1e-6), ("near 1e3", im1 + 1e3, im2 + 1e3)]
+
+
+# B13 gives a warp 8 rows of a band (64 rows, 32 past 2560 columns) and 2
+# columns a lane (strips of 56 columns) or, on small planes, 1 (strips of
+# 24); warps within 4 rows of the top or bottom and strips within 4 columns
+# of the left or right take the edge rule by tap_index.  Heights around
+# the bands and the warps' rows, widths around both strip widths and the
+# first strip that touches no edge (W 52 and 116), each variant forced and
+# the wrapper's choice
 @pytest.mark.parametrize("shape", [(2, 130, 131), (2, 1080, 1920), (1, 100, 2600), (1, 16, 16),
-                                   (3, 67, 241)], ids=str)
+                                   (3, 67, 241), (1, 17, 17), (3, 40, 2561)]
+                         + [(n, h, 40) for n, h in ((1, 19), (3, 20), (1, 21), (3, 63), (1, 64),
+                                                    (3, 65), (1, 127), (3, 128), (1, 129))]
+                         + [(1 + 2 * (w % 2), 24, w) for w in (23, 24, 25, 51, 52, 53, 55, 56,
+                                                               57, 111, 112, 113, 115, 116,
+                                                               117)], ids=str)
 def test_ssim_kernel_matches_plain(cuda, shape):
-    g = torch.Generator(device=cuda).manual_seed(sum(shape))
-    im1, im2 = (torch.rand(shape, generator=g, device=cuda) for _ in range(2))
-    for ns, ne in ((True, True), (True, False), (False, True)):
-        part = ks.ssim_partials(im1, im2, ns, ne)
-        assert torch.equal(part, ks.ssim_partials_ref(im1, im2, ns, ne))
-        cpu = ks.ssim_partials_ref(im1.cpu(), im2.cpu(), ns, ne)
-        assert torch.equal(part.cpu(), cpu)
-        torch.testing.assert_close(ks.ssim_sums(im1, im2, ns, ne).cpu(), ks.fold(cpu),
-                                   rtol=1e-12, atol=0)
+    for name, im1, im2 in _ssim_inputs(shape, cuda):
+        for ns, ne in ((True, True), (True, False), (False, True)):
+            want = ks.ssim_partials_ref(im1, im2, ns, ne)
+            cpu = ks.ssim_partials_ref(im1.cpu(), im2.cpu(), ns, ne)
+            for cols in (None, 2, 1):
+                part = ks.ssim_partials(im1, im2, ns, ne, cols)
+                assert _same(part, want), (name, ns, ne, cols)
+                if name == "identical":
+                    # d is +0.0 everywhere, so detail = max(-d, 0) is torch's
+                    # clamp of -0.0: -0.0 on the CPU, +0.0 on the card (fmaxf),
+                    # and a full band's detail sum keeps that sign; + 0.0 maps
+                    # only -0.0 to +0.0 and leaves every other value as it is
+                    assert _same(part.cpu() + 0.0, cpu + 0.0), (name, ns, ne, cols)
+                else:
+                    assert _same(part.cpu(), cpu), (name, ns, ne, cols)
+            torch.testing.assert_close(ks.ssim_sums(im1, im2, ns, ne).cpu(), ks.fold(cpu),
+                                       rtol=1e-12, atol=0)
+
+
+@pytest.mark.parametrize("n,h,w,sms,cols", [
+    # 1080p luma and the scale-1 planes of 8 frames: 4760 and 1296 blocks of
+    # 56 columns x 64 rows, at least seven an SM of 132
+    (8, 1080, 1920, 132, 2), (8, 540, 960, 132, 2),
+    # scales 2-4: 360, 120 and 48 blocks
+    (8, 270, 480, 132, 1), (8, 135, 240, 132, 1), (8, 68, 120, 132, 1),
+    # both sides of seven blocks an SM; 32-row bands past 2560 columns
+    (923, 16, 56, 132, 1), (924, 16, 56, 132, 2), (1, 100, 2600, 1, 2), (1, 64, 2600, 40, 1),
+], ids=str)
+def test_ssim_lane_columns_takes_the_narrow_strips_below_seven_blocks_an_sm(cuda, n, h, w, sms,
+                                                                           cols):
+    assert ks.lane_columns(n, h, w, sms) == cols
+
+
+def test_ssim_kernel_variants_on_both_sides_of_their_thresholds(cuda):
+    # the launcher: 2 columns a lane from seven blocks (a 16x56 frame is one)
+    # per SM; 8-byte loads where W is even and both planes are on 8 bytes
+    sms = torch.cuda.get_device_properties(cuda).multi_processor_count
+    g = torch.Generator(device=cuda).manual_seed(7)
+    for n in (7 * sms - 1, 7 * sms):
+        assert ks.lane_columns(n, 16, 56, sms) == (2 if n == 7 * sms else 1)
+        im1, im2 = (torch.rand((n, 16, 56), generator=g, device=cuda) for _ in range(2))
+        assert _same(ks.ssim_partials(im1, im2, True, True),
+                     ks.ssim_partials_ref(im1, im2, True, True))
+    for w in (480, 481, 482, 483):
+        im1, im2 = (torch.rand((2, 70, w), generator=g, device=cuda) for _ in range(2))
+        for a, b in ((im1, im2), (_offset(im1), im2), (im1, _offset(im2))):
+            for ns, ne in ((True, True), (False, True)):
+                want = ks.ssim_partials_ref(a, b, ns, ne)
+                for cols in (2, 1):
+                    assert _same(ks.ssim_partials(a, b, ns, ne, cols), want), (w, cols)
+    with pytest.raises(ValueError, match="cols"):
+        ks.ssim_partials(im1, im2, True, True, 4)
 
 
 def _metric_clip(fmt, n, h, w, seed, device):
@@ -586,7 +650,7 @@ def test_xpsnr_on_card_matches_cpu(cuda, fmt, h, w, fps, launches):
     assert (kx.LAUNCHES["luma_stats"], kx.LAUNCHES["chroma_sse"]) == launches
     want = vt.xpsnr(c1, c2, fps=fps)
     assert got.props["_XPSNR_WSSE"].is_cuda
-    assert torch.equal(got.props["_XPSNR_WSSE"].cpu(), want.props["_XPSNR_WSSE"])
+    assert _same(got.props["_XPSNR_WSSE"].cpu(), want.props["_XPSNR_WSSE"])
     for k in ("XPSNR_Y", "XPSNR_U", "XPSNR_V", "XPSNR_AVG"):
         torch.testing.assert_close(got.props[k].cpu(), want.props[k], rtol=1e-12, atol=0)
 
@@ -613,7 +677,7 @@ def test_xpsnr_on_card_takes_strided_planes(cuda, layout):
     got = vt.xpsnr(strided(c1), strided(c2), fps=24)
     assert (kx.LAUNCHES["luma_stats"], kx.LAUNCHES["chroma_sse"]) == (1, 2)
     want = vt.xpsnr(c1, c2, fps=24)
-    assert torch.equal(got.props["_XPSNR_WSSE"].cpu(), want.props["_XPSNR_WSSE"])
+    assert _same(got.props["_XPSNR_WSSE"].cpu(), want.props["_XPSNR_WSSE"])
     for k in ("XPSNR_Y", "XPSNR_U", "XPSNR_V", "XPSNR_AVG"):
         torch.testing.assert_close(got.props[k].cpu(), want.props[k], rtol=1e-12, atol=0)
 
@@ -725,6 +789,40 @@ def test_compress_kernel_matches_plain(cuda, shape):
                 assert _same(kz.compress_plane(*a), kz.compress_plane_ref(*a))
                 regimes.add(wide)
     assert regimes == {False, True}
+
+
+# B14 runs one thread per 8x8 block, its rows as 8-byte words where w % 8 == 0
+# and the planes are on 8 bytes, else as clamped bytes: heights and widths
+# around 8, 16, 256, 960 and 1920, aligned and not, on 1 and 3 frames
+@pytest.mark.parametrize("h,w", [(h, 24) for h in range(1, 10)] + [(9, w) for w in range(1, 10)]
+                         + [(h, 17) for h in (15, 16, 17, 255, 256, 257)]
+                         + [(16, w) for w in (15, 16, 17, 255, 256, 257, 959, 960, 961, 1919,
+                                              1920, 1921)]
+                         + [(h, 64) for h in (959, 960, 961, 1080)]
+                         + [(1080, w) for w in (1919, 1920, 1921)], ids=str)
+def test_compress_kernel_matches_plain_at_block_edges(cuda, h, w):
+    shape = (3 if (h + w) % 2 else 1, h, w)
+    for x in (_rand(shape, torch.uint8, cuda, seed=h + w), _smooth_u8(shape, cuda, h)):
+        for codec, qscale, dc_prec, quality in _COMPRESS:
+            for chroma in (False, True):
+                qa, qb, wide, _ = _compress_op._quant_setup(codec, qscale, dc_prec, quality,
+                                                            chroma)
+                a = (x, qa, qb, codec == "jpeg", dc_prec, wide)
+                assert _same(kz.compress_plane(*a), kz.compress_plane_ref(*a)), (
+                    codec, qscale, dc_prec, quality, chroma)
+
+
+def test_compress_kernel_takes_planes_off_8_byte_alignment(cuda):
+    """A plane that starts one byte past an aligned address: rows of 256
+    bytes, but clamped byte loads and byte stores."""
+    n, h, w = 3, 40, 256
+    flat = _smooth_u8((1, 1, n * h * w + 1), cuda, 7).view(-1)
+    x = flat[1:].view(n, h, w)
+    assert x.is_contiguous() and x.data_ptr() % 8 == 1
+    for codec, qscale, dc_prec, quality in _COMPRESS:
+        qa, qb, wide, _ = _compress_op._quant_setup(codec, qscale, dc_prec, quality, False)
+        a = (x, qa, qb, codec == "jpeg", dc_prec, wide)
+        assert _same(kz.compress_plane(*a), kz.compress_plane_ref(*a))
 
 
 @pytest.mark.parametrize("shape", [(3, 37, 53), (1, 5, 3), (2, 5, 300), (5, 540, 960)], ids=str)

@@ -103,6 +103,35 @@ def test_band_partials_are_row_order_sums():
     assert torch.equal(ks.ssim_sums_ref(im1, im2, True, True), ks.fold(part))
 
 
+@pytest.mark.parametrize("h,w", [
+    # band edges: one row short of, at and past one and two 64-row bands; a
+    # last band of one row; 32-row bands past 2560 columns
+    (63, 17), (64, 17), (65, 17), (127, 9), (128, 9), (129, 9), (16, 16), (33, 2561),
+    (100, 2600),
+], ids=str)
+def test_band_partials_are_row_order_sums_at_band_edges(h, w):
+    rng = np.random.default_rng(h * 10_000 + w)
+    im1, im2 = (torch.from_numpy(rng.random((2, h, w), dtype=np.float32)) for _ in range(2))
+    part = ks.ssim_partials_ref(im1, im2, True, True)
+    b = ks.band_rows(w)
+    assert part.shape == (2, -(-h // b), 6, w) and part.dtype == torch.float32
+    maps = ks.ssim_maps(im1, im2, True, True)
+    for band in range(part.shape[1]):
+        rows = range(band * b, min(h, band * b + b))
+        for k, m in enumerate(maps):
+            m4 = (m * m) * (m * m)
+            for j, v in enumerate((m, m4)):
+                acc = v[:, rows[0]]
+                for r in rows[1:]:
+                    acc = acc + v[:, r]
+                # the plain version also adds the band's zero rows past the
+                # picture: + 0.0 leaves a sum of maps >= 0 as it is, but
+                # turns -0.0 into +0.0 (compared bit for bit)
+                want = acc + 0.0 if len(rows) < b else acc
+                assert torch.equal(part[:, band, 2 * k + j].view(torch.int32),
+                                   want.view(torch.int32)), (band, k, j)
+
+
 @pytest.mark.parametrize("shape", [(2, 40, 50), (2, 9, 12), (1, 7, 5), (2, 4, 3), (1, 1, 2)],
                          ids=str)
 @pytest.mark.parametrize("axis", [1, 2])

@@ -50,11 +50,28 @@ exports the query, and ptxas' registers of the package's build:
 - ``comb_mask`` (B16, ``comb_mask_kernel``) at CombMask's defaults (metric
   0, cthresh 6, mthresh 9, expand) on 64 frames of 1080p and 540x960 of the
   8-bit picture: lane 0's cycles per frame in loading the band's rows and
-  waiting for them, in the band's rows, and the warp's life per frame.
+  waiting for them, in the band's rows, and the warp's life per frame;
+- ``ssim`` (B13, ``ssim_band_kernel``) on each of the 11 launches of
+  ``ssimulacra2(r1, r2)`` on 8 frames of 1080p RGBS (r2 = r1 + 0.01), by
+  (scale, plane), each timed alone (device time, ``torch.profiler``) with
+  the launcher's variant and with each of the two forced, then the sum by
+  scale: lane 0's cycles per warp (its 8 rows) in the vertical taps, in
+  the horizontal pass and maps, in the window's shift and the next row's
+  loads, in rows within 4 of the top or bottom, at the block barrier, in
+  the in-order sums, and the warp's life; then the whole row's device time
+  with the launcher's variant and with each forced, and both variants on
+  2 to 32 frames of 270x480 planes, across the launcher's threshold;
+- ``compress`` (B14, ``compress_kernel``) on 64 frames of 1080p and 540x960
+  of the 8-bit picture, MPEG-2 q8 and JPEG q95 (the rows' regimes, luma
+  and chroma tables): lane 0's cycles per block and frame in issuing the
+  next frame's loads, in the block's pipeline and in the store, the
+  thread's life per frame, and the share of IDCT rows, and of warps, that
+  take the DC-only path;
 
-For B18, B15, B3/B4 and B16 it also prints the instruction mix of each
-instantiation and of each of its loops (``cuobjdump -sass`` of the
-package's build).
+For B18, B15, B3/B4, B16, B13 and B14 it also prints the instruction mix of
+each instantiation and of each of its loops (``cuobjdump -sass`` of the
+package's build), with the counts by class (f32, integer and address,
+loads, stores, other).
 
 The anchors are lines of the current sources; an older commit's kernels
 are read with that commit's tool (``git show <commit>:tools/...``).
@@ -78,11 +95,13 @@ from vszip_tpu_torch.kernels import bilateral_dither as kbd  # noqa: E402
 from vszip_tpu_torch.kernels import boxblur as kb  # noqa: E402
 from vszip_tpu_torch.kernels import checkmate as kk  # noqa: E402
 from vszip_tpu_torch.kernels import comb_mask as km  # noqa: E402
+from vszip_tpu_torch.kernels import compress as kz  # noqa: E402
 from vszip_tpu_torch.kernels import eedi3 as ke  # noqa: E402
+from vszip_tpu_torch.kernels import ssim as kss  # noqa: E402
 from vszip_tpu_torch.ops.eedi3 import _pad_rows  # noqa: E402
 
 OUT = ROOT / "build" / "kernel_spans"
-SLOTS = 8  # the probe's counters: the spans, and the count they are divided by last
+SLOTS = 12  # the probe's counters: the spans, and the count they are divided by last
 FRAMES, LINES, W, MDIS, NRAD = 8, 538, 1920, 20, 2
 EEDI3_COEFS = tuple(float(np.float32(v)) for v in (0.2 / 3, 0.25 / 255, 20.0 / 255)) + (
     float(np.float32(1.0) - np.float32(0.2) - np.float32(0.25)),)
@@ -286,6 +305,72 @@ extern "C" int vz_probe_occupancy(int tthr2, int aligned, int unused, int* block
   return (int)cudaOccupancyMaxActiveBlocksPerMultiprocessor(blocks, k, kThreads,
                                                             smem_bytes(tthr2));
 }
+"""),    "ssim": ("ssim", kss, (
+        "vertical pass (the window's taps)", "horizontal pass and maps (two warp barriers)",
+        "window shift and the next row's loads", "rows within 4 of the top or bottom",
+        "block barrier", "in-order sums of the band", "the warp's life"), (
+        ("  const int ys = y0 + warp * kWarpRows, ye = min(ys + kWarpRows, y1);\n", "",
+         "  long long sn_v = 0, sn_h = 0, sn_s = 0, sn_e = 0;\n"
+         "  const long long sn_start = clock64();\n"),
+        ("      float v[4][kCols];\n#pragma unroll\n      for (int k = 0; k < kTaps; ++k) "
+         "vtap<kSsim, kCols>(v, P[k], Q[k], k);\n", "      const long long sn0 = clock64();\n",
+         "      const long long sn1 = clock64();\n"),
+        ("      row_maps<kSsim, kErr, kCols>(B, y - y0, v, P[kRadius], Q[kRadius]);\n", "",
+         "      const long long sn2 = clock64();\n"),
+        ("          Q[kTaps - 1][j] = nq[j];\n        }\n      }\n", "",
+         "      sn_v += sn1 - sn0;\n      sn_h += sn2 - sn1;\n      sn_s += clock64() - sn2;\n"),
+        ("  } else if (ys < ye) {\n", "", "    const long long sn3 = clock64();\n"),
+        ("      row_maps<kSsim, kErr, kCols>(B, y - y0, v, pc, qc);\n    }\n", "",
+         "    sn_e += clock64() - sn3;\n"),
+        ("  __syncthreads();\n\n  // one thread per (sum pair, column)",
+         "  const long long sn4 = clock64();\n", ""),
+        ("  // one thread per (sum pair, column): the band's rows in row order.  The\n",
+         "  const long long sn5 = clock64();\n", ""),
+        ("      dst[w] = 0.0f;\n    }\n  }\n", "",
+         f"  {_add(0, 'sn_v', LANE0)} {_add(1, 'sn_h', LANE0)} {_add(2, 'sn_s', LANE0)}\n"
+         f"  {_add(3, 'sn_e', LANE0)} {_add(4, 'sn5 - sn4', LANE0)}\n"
+         f"  {_add(5, 'clock64() - sn5', LANE0)} {_add(6, 'clock64() - sn_start', LANE0)}\n"
+         f"  {_add(SLOTS - 1, '1', LANE0)}\n")), """
+template <int kCols>
+int probe_occupancy(int ssim, int err, int* blocks) {
+  const void* k = ssim ? (err ? (const void*)ssim_band_kernel<true, true, kCols>
+                              : (const void*)ssim_band_kernel<true, false, kCols>)
+                       : (const void*)ssim_band_kernel<false, true, kCols>;
+  const size_t bytes = ssim ? (err ? smem_bytes<true, true, kCols>(64)
+                                   : smem_bytes<true, false, kCols>(64))
+                            : smem_bytes<false, true, kCols>(64);
+  return (int)cudaOccupancyMaxActiveBlocksPerMultiprocessor(blocks, k, kMaxThreads, bytes);
+}
+
+extern "C" int vz_probe_occupancy(int ssim, int err, int cols, int* blocks, int* threads) {
+  *threads = kMaxThreads;
+  return cols == 2 ? probe_occupancy<2>(ssim, err, blocks) : probe_occupancy<1>(ssim, err, blocks);
+}
+"""),
+    "compress": ("compress", kz, (
+        "issue the next frame's 8 loads", "the block's pipeline (unpack, 4 passes, pack)",
+        "store", "the thread's life, per frame"), (
+        ("  uint64_t rw[8];\n  load_block<kVec>(rw, x + f * plane, h, w, y0, x0);\n",
+         "  long long cq_ld = 0, cq_pipe = 0, cq_st = 0, cq_n = 0;\n"
+         "  const long long cq_start = clock64();\n", ""),
+        ("    uint64_t nx[8];\n", "", "    const long long cq0 = clock64();\n"),
+        ("    block_pipeline<kJpeg, kWide>(rw, tab, dc_prec);\n",
+         "    const long long cq1 = clock64();\n", "    const long long cq2 = clock64();\n"),
+        ("    if (next >= n) break;\n    f = next;\n#pragma unroll\n",
+         "    const long long cq3 = clock64();\n    cq_ld += cq1 - cq0;\n"
+         "    cq_pipe += cq2 - cq1;\n"
+         "    cq_st += cq3 - cq2;\n    ++cq_n;\n    if (next >= n) {\n"
+         f"      {_add(0, 'cq_ld', LANE0)} {_add(1, 'cq_pipe', LANE0)} {_add(2, 'cq_st', LANE0)}\n"
+         f"      {_add(3, 'clock64() - cq_start', LANE0)} {_add(SLOTS - 1, 'cq_n', LANE0)}\n"
+         "    }\n", "")), """
+extern "C" int vz_probe_occupancy(int jpeg, int wide, int unused, int* blocks, int* threads) {
+  const void* k = jpeg ? (wide ? (const void*)compress_kernel<true, true, true>
+                               : (const void*)compress_kernel<true, false, true>)
+                       : (wide ? (const void*)compress_kernel<false, true, true>
+                               : (const void*)compress_kernel<false, false, true>);
+  *threads = kThreads;
+  return (int)cudaOccupancyMaxActiveBlocksPerMultiprocessor(blocks, k, kThreads, 0);
+}
 """),
 }
 
@@ -366,6 +451,27 @@ def events_ms(call, iters: int = 5) -> float:
     t1.record()
     torch.cuda.synchronize()
     return t0.elapsed_time(t1) / iters
+
+
+def device_ms(call, iters: int = 5) -> float:
+    """Mean device time of the kernels one `call` launches (``torch.profiler``):
+    unlike events around back-to-back calls, it leaves out the host's time
+    between launches, which a call of a few microseconds of device work
+    cannot hide."""
+    from torch.profiler import ProfilerActivity, profile
+
+    for _ in range(2):
+        call()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            call()
+        torch.cuda.synchronize()
+    us = sum(ev.time_range.end - ev.time_range.start for ev in prof.events()
+             if ev.device_type == torch.autograd.DeviceType.CUDA)
+    if not us:
+        raise SystemExit("kernel_spans: the profiler saw no device activity")
+    return us / 1e3 / iters
 
 
 def _same(a, b) -> bool:
@@ -509,21 +615,143 @@ def comb_mask(probe, g, dev) -> None:
                 lambda: km.comb_mask(x, 6, 9, False, True), (0, 1, 1))
 
 
+def ssim_clips(g, dev):
+    """The two clips of chip_smoke.py's SSIMULACRA2 row: 8 frames of 1080p
+    RGBS, r2 = r1 + 0.01, clamped."""
+    import vszip_tpu_torch as vt
+
+    r1 = [torch.rand((8, 1080, 1920), generator=g, device=dev) for _ in range(3)]
+    r2 = [(p + 0.01).clamp(0, 1) for p in r1]
+    return tuple(vt.Clip.from_planes(p, vt.get_format("RGBS"), device=dev) for p in (r1, r2))
+
+
+def ssim_calls(c1, c2):
+    """The arguments of the 11 B13 launches of one ``ssimulacra2(c1, c2)``
+    call, each with its (scale, plane)."""
+    import vszip_tpu_torch as vt
+
+    oss = importlib.import_module("vszip_tpu_torch.ops.ssimulacra2")
+    calls, fn = [], kss.ssim_sums
+    kss.ssim_sums = lambda *a: calls.append(a) or fn(*a)
+    try:
+        vt.ssimulacra2(c1, c2)
+    finally:
+        kss.ssim_sums = fn
+    kept = [(scale, plane) for scale in range(6) for plane in range(3)
+            if not all(oss._skip(plane, scale).values())]
+    return [(sp, a) for sp, a in zip(kept, calls) if min(a[0].shape[1:]) >= oss.MIN_KERNEL_SIDE]
+
+
+def forcing(cols):
+    """``kss.ssim_partials`` with its variant forced to `cols` (None: the
+    launcher's choice), for a ``using``-style patch."""
+    fn = kss.ssim_partials
+    return fn if cols is None else (lambda im1, im2, ns, ne: fn(im1, im2, ns, ne, cols))
+
+
+def ssim(probe, g, dev) -> None:
+    import vszip_tpu_torch as vt
+
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    c1, c2 = ssim_clips(g, dev)
+    total = {}
+    for (scale, plane), (im1, im2, ns, ne) in ssim_calls(c1, c2):
+        n, h, w = im1.shape
+
+        def call():
+            return kss.ssim_partials(im1, im2, ns, ne)
+        total[scale] = total.get(scale, 0.0) + device_ms(call)
+        cols = kss.lane_columns(n, h, w, sms)
+        measure("ssim", probe, f"B13 scale {scale} plane {plane}, {n}x{h}x{w}, ssim {int(ns)} "
+                f"err {int(ne)}, {cols} column(s) a lane; device ms with "
+                + ", ".join(f"{c}: {device_ms(lambda: forcing(c)(im1, im2, ns, ne)):.4f}"
+                            for c in (2, 1))
+                + " (lane 0 of each warp, per warp)", call, (int(ns), int(ne), cols))
+    print("B13 device ms by scale (each launch's kernel time, summed): "
+          + ", ".join(f"scale {k} {v:.4f}" for k, v in total.items())
+          + f"; all {sum(total.values()):.4f}", flush=True)
+    # the whole row's device time (every kernel of ssimulacra2) with the
+    # launcher's choice and with each variant forced, in turns
+    row = {None: [], 2: [], 1: []}
+    for cols in (None, 2, 1, 1, 2, None):
+        fn, kss.ssim_partials = kss.ssim_partials, forcing(cols)
+        try:
+            row[cols].append(device_ms(lambda: vt.ssimulacra2(c1, c2)))
+        finally:
+            kss.ssim_partials = fn
+    print("ssimulacra2 row device ms (8 x 1080p RGBS): " + ", ".join(
+        f"{'choice' if c is None else f'{c} columns'} {sum(t) / 2:.4f} ({t[0]:.4f}, {t[1]:.4f})"
+        for c, t in row.items()), flush=True)
+    # the choice's threshold: both variants across the grid sizes around it,
+    # 270x480 planes (scale 2's) of n frames
+    for n in (2, 4, 8, 12, 16, 20, 24, 28, 32):
+        im1 = torch.rand((n, 270, 480), generator=g, device=dev)
+        im2 = (im1 + 0.01).clamp(0, 1)
+        print(f"B13 {n}x270x480 on {sms} SMs, the launcher takes "
+              f"{kss.lane_columns(n, 270, 480, sms)}; device ms with " + ", ".join(
+                  f"{c}: {device_ms(lambda: forcing(c)(im1, im2, True, True)):.4f}"
+                  for c in (2, 1)), flush=True)
+
+
+def dc_only_shares(a):
+    """(rows, warps): the share of the 8-point IDCT rows whose coefficients
+    1-7 are all zero, and of warps whose 32 blocks (adjacent in a frame's
+    block order, a thread per block) all take that path in row r together,
+    skipping the full row IDCT."""
+    q = kz.dequantized(*a)
+    dc = (q[..., 1:] == 0).all(-1)  # (N, H/8, 8 rows, W/8 blocks)
+    dc = dc.permute(0, 2, 1, 3).reshape(dc.shape[0], 8, -1)
+    pad = -dc.shape[-1] % 32
+    grouped = torch.nn.functional.pad(dc, (0, pad), value=True).view(*dc.shape[:-1], -1, 32)
+    return float(dc.float().mean()), float(grouped.all(-1).float().mean())
+
+
+def compress(probe, g, dev) -> None:
+    oz = importlib.import_module("vszip_tpu_torch.ops.compress")
+    for h, w in ((1080, 1920), (540, 960)):
+        x = int8_picture(64, h, w, g, dev)
+        for codec, quality, name in (("mpeg2", 50, "MPEG-2 q8"), ("jpeg", 95, "JPEG q95")):
+            qa, qb, wide, _ = oz._quant_setup(codec, 8, 0, quality, h < 1080)
+            a = (x, qa, qb, codec == "jpeg", 0, wide)
+            rows, warps = dc_only_shares(a)
+            measure("compress", probe, f"B14 {name} (wide {int(wide)}), 64x{h}x{w} u8; DC-only "
+                    f"rows {rows:.4f}, warps {warps:.4f} (lane 0 of each warp, per frame)",
+                    lambda: kz.compress_plane(*a), (int(codec == "jpeg"), int(wide), 0))
+
+
 RUNS = {"eedi3_line": eedi3_line, "vcheck": vcheck, "h_fixed": h_fixed, "subspl": subspl,
-        "checkmate": checkmate, "v_fixed": v_fixed, "comb_mask": comb_mask}
+        "checkmate": checkmate, "v_fixed": v_fixed, "comb_mask": comb_mask,
+        "ssim": ssim, "compress": compress}
 # the instantiations the bench's calls launch (B18: uint16, no ref)
 SASS_OF = {"subspl": "subspl_kernelItLb0E", "checkmate": "checkmate_kernel",
-           "v_fixed": "v_chip_kernelItLi[15]ELb1E", "comb_mask": "comb_mask_kernelILb0ELb1ELb1E"}
+           "v_fixed": "v_chip_kernelItLi[15]ELb1E", "comb_mask": "comb_mask_kernelILb0ELb1ELb1E",
+           "ssim": "ssim_band_kernelILb1ELb1ELi[12]E",
+           "compress": "compress_kernelILb(0ELb0|1ELb1)ELb1E"}
 # the kernel function of a table whose name is not <table>_kernel
-FUNCTION = {"v_fixed": "v_chip_kernel"}
+FUNCTION = {"v_fixed": "v_chip_kernel", "ssim": "ssim_band_kernel"}
 SASS_LINE = re.compile(r"/\*([0-9a-f]{4,})\*/\s+(?:@!?U?P\w+\s+)?([A-Z][A-Z0-9_]*)[^;]*;")
+
+
+# SASS opcodes by class: f32 arithmetic, integer and address arithmetic,
+# loads, stores; the rest (moves, branches, barriers, ...) is "other"
+CLASSES = (("f32", re.compile(r"F(ADD|MUL|FMA|MNMX|SETP|SEL|CHK|RND)|MUFU")),
+           ("int", re.compile(r"I(MAD|MUL|ADD3?|MNMX|ABS|SETP)|VIADD|VIMNMX|VIADDMNMX|LEA|SHF"
+                              r"|LOP3|SEL|PRMT|IDP|POPC|FLO|BMSK|SGXT")),
+           ("load", re.compile(r"LD[A-Z]*")), ("store", re.compile(r"ST[GSL]?")))
 
 
 def _mix(ops) -> str:
     counts = {}
     for op in ops:
         counts[op] = counts.get(op, 0) + 1
-    return ", ".join(f"{op} {n}" for op, n in sorted(counts.items(), key=lambda kv: -kv[1]))
+    by_class = {}
+    for op, n in counts.items():
+        c = next((name for name, pat in CLASSES if pat.fullmatch(op)), "other")
+        by_class[c] = by_class.get(c, 0) + n
+    classes = ", ".join(f"{c} {by_class.get(c, 0)}"
+                        for c in ("f32", "int", "load", "store", "other"))
+    return (f"[{classes}] "
+            + ", ".join(f"{op} {n}" for op, n in sorted(counts.items(), key=lambda kv: -kv[1])))
 
 
 def sass(lib: str, kernel: str) -> None:

@@ -2,7 +2,8 @@
 """Times build copies of the port's CUDA sources with other constants against
 the package's own build, on one NVIDIA GPU:
 
-    python3 tools/kernel_variants.py
+    python3 tools/kernel_variants.py          # every variant below
+    python3 tools/kernel_variants.py B13      # those of some kernels
 
 Each variant replaces one constant line of a source in
 ``vszip_tpu_torch/csrc/``, builds the copy with the package's nvcc flags into
@@ -11,7 +12,10 @@ times the package and the copy in turns (package, copy, copy, package; CUDA
 events, 10 calls each) at the bench's shapes: BoxBlur's vertical passes
 (B3 at r 13 x 5, B4 at r 23) on 64 frames of 1080p YUV420P16, CombMask (B16)
 at its defaults on 64 frames of 1080p YUV420P8 of ``chip_smoke.py``'s
-8-bit picture.  It prints each variant's mean beside the package's.
+8-bit picture, SSIMULACRA2's B13 on the 11 launches of its 1080p row (by
+device time, ``torch.profiler``: the small scales' launches take less
+device time than the host takes to issue them).  It prints each variant's
+mean beside the package's.
 """
 
 import sys
@@ -27,6 +31,7 @@ import kernel_spans as ks  # noqa: E402
 from vszip_tpu_torch import _build  # noqa: E402
 from vszip_tpu_torch.kernels import boxblur as kb  # noqa: E402
 from vszip_tpu_torch.kernels import comb_mask as km  # noqa: E402
+from vszip_tpu_torch.kernels import ssim as kss  # noqa: E402
 
 # (library, the constant's line in the package's source, its replacement,
 # the calls it is timed on)
@@ -41,6 +46,11 @@ VARIANTS = [
     ("boxblur", "constexpr int kAheadGroups = 4;", "constexpr int kAheadGroups = 8;", "B3"),
     ("boxblur", "constexpr int kAheadGroups = 4;", "constexpr int kAheadGroups = 2;", "B4"),
     ("boxblur", "constexpr int kAheadGroups = 4;", "constexpr int kAheadGroups = 8;", "B4"),
+    # B13's blocks an SM at 2 columns a lane: 2 (128 registers) or 4 (64)
+    ("ssim", "__launch_bounds__(kMaxThreads, kCols == 2 ? 3 : 4)",
+     "__launch_bounds__(kMaxThreads, kCols == 2 ? 2 : 4)", "B13"),
+    ("ssim", "__launch_bounds__(kMaxThreads, kCols == 2 ? 3 : 4)",
+     "__launch_bounds__(kMaxThreads, kCols == 2 ? 4 : 4)", "B13"),
 ]
 
 
@@ -48,19 +58,23 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("kernel_variants: no CUDA device", file=sys.stderr)
         return 1
+    chosen = [v for v in VARIANTS if not sys.argv[1:] or v[3] in sys.argv[1:]]
     ks.OUT.mkdir(parents=True, exist_ok=True)
-    _build.build("boxblur", "comb_mask")
+    _build.build(*{v[0] for v in chosen})
     dev = torch.device("cuda", 0)
     g = torch.Generator(device=dev).manual_seed(0)
     p16 = [torch.randint(0, 1 << 16, s, generator=g, device=dev, dtype=torch.int32)
            .to(torch.uint16) for s in ((64, 1080, 1920), (64, 540, 960), (64, 540, 960))]
     p8 = [ks.int8_picture(64, h, w, g, dev) for h, w in ((1080, 1920), (540, 960), (540, 960))]
+    b13 = [a for _, a in ks.ssim_calls(*ks.ssim_clips(g, dev))] if any(v[3] == "B13" for v in chosen) else []
     calls = {"B16": (km, lambda: [km.comb_mask(p, 6, 9, False, True) for p in p8]),
              "B3": (kb, lambda: [kb.rt_blur_v_multi(p, 13, 5) for p in p16]),
-             "B4": (kb, lambda: [kb.rt_blur_v(p, 23) for p in p16])}
+             "B4": (kb, lambda: [kb.rt_blur_v(p, 23) for p in p16]),
+             "B13": (kss, lambda: [kss.ssim_partials(*a) for a in b13])}
     built = {}
-    for lib, old, new, which in VARIANTS:
+    for lib, old, new, which in chosen:
         module, call = calls[which]
+        timed = ks.device_ms if which == "B13" else (lambda c: ks.events_ms(c, 10))
         src = _build.source(lib).read_text()
         if src.count(old) != 1:
             raise SystemExit(f"kernel_variants: {lib}: not found once: {old!r}")
@@ -70,8 +84,8 @@ def main() -> int:
         copy = built[lib, new]
         if not ks._same(tuple(ks.using(module, copy, call)), tuple(call())):
             raise SystemExit(f"kernel_variants: {new!r} disagrees with the package")
-        t = [ks.events_ms(call, 10), ks.events_ms(lambda: ks.using(module, copy, call), 10),
-             ks.events_ms(lambda: ks.using(module, copy, call), 10), ks.events_ms(call, 10)]
+        t = [timed(call), timed(lambda: ks.using(module, copy, call)),
+             timed(lambda: ks.using(module, copy, call)), timed(call)]
         print(f"{which} {new.strip()}: {(t[1] + t[2]) / 2:.3f} ms against the package's "
               f"{(t[0] + t[3]) / 2:.3f} ms ({', '.join(f'{v:.3f}' for v in t)})", flush=True)
     return 0

@@ -17,21 +17,38 @@
 //
 // The TPU kernel runs the butterflies as block-diagonal bf16 matmuls on byte
 // limbs, the DC-only test and DC broadcast as 15 masked rolls, and reads the
-// tables as (64, W) tiles.  Here a 256-thread block takes one 8-row strip of
-// up to 256 columns (32 blocks) into shared memory with coalesced, clamped
-// loads (the edge padding costs no copy); one thread per (block, row) runs
-// the row passes and one per (block, column) the column passes, with the
-// butterflies of the reference; the two (64,) tables travel in the kernel's
-// arguments.  Each 8-value group is padded to 9 words so a warp's 32 blocks
-// hit 32 banks.  Only pixels inside the picture are stored.
+// tables as (64, W) tiles.  Here one thread owns one 8x8 block: its 64
+// values stay in registers through all four 8-point passes, with the
+// butterflies of the reference, so nothing goes through shared memory and
+// no block barrier is taken.  A warp's 32 threads own 32 adjacent blocks of
+// a block row, so each of the 8 row loads (one 8-byte word a row) and
+// stores moves 256 contiguous bytes.  The grid is one frame's blocks times
+// as many frame groups as fill the card's resident blocks in one wave; a
+// thread walks its block through every g-th frame and loads the next
+// frame's 8 words while this one computes.  The two (64,) tables travel in
+// the kernel's arguments (constant bank operands).  The DC-only fast path is
+// taken per row, as the reference takes it; a warp skips the full row IDCT
+// when all of its 32 blocks' row is DC-only.  Eight lanes per block (one
+// row each, the transposes through a per-warp shared tile) held 32-39
+// registers and six blocks an SM but ran slower in both regimes: a warp's
+// quantizer vote then spans 32 different coefficients and almost never
+// skips, and the column pass with the quantizer took most of a lane's life.
 //
-// What bounds it: one u8 read and one u8 write per pixel (199 MB per 64
-// frames of 1080p luma against 3.35 TB/s) and the integer operations as the
+// Variants: the 8-byte loads and stores need w % 8 == 0 and both planes on
+// 8 bytes (kVec, chosen by the launcher); other planes take 8 clamped byte
+// loads a row and store only the columns inside the plane.  The bottom
+// edge's blocks clamp their row index and store only rows inside, in both.
+//
+// What bounds it: one u8 read and one u8 write per pixel (199 MB each way
+// per 64 frames of 1080p YUV420P8 against 3.35 TB/s) and the integer operations as the
 // card issues them (multiply-adds and 3-input adds fused), shared between
 // the ALU and the FMA pipe at 64 per SM per clock each: about 28 per pixel
 // where most rows take the DC-only path and most coefficients quantize to
 // zero, which outweigh the bytes (chip_smoke.py counts both from the data).
-// The passes' shared-memory round trips and barriers come on top.
+// The design adds the byte unpacking and packing (about 3 a pixel); each
+// coefficient's quantizer runs only where some lane of the warp may give a
+// value other than 0 (a vote on the product's range, about 5 a coefficient
+// where the warp skips it).
 //
 // Plain C interface, loaded with ctypes.  The entry launches on the given
 // stream, does not synchronise, allocates nothing, and returns
@@ -40,15 +57,14 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include <algorithm>
+
 namespace {
 
 typedef uint32_t u32;
 
 constexpr int kThreads = 256;
-constexpr int kBlocksPerStrip = 32;         // 8x8 blocks across one strip
-constexpr int kGroup = 9;                   // 8 values + 1 pad word
-constexpr int kRow = kBlocksPerStrip * kGroup;
-constexpr int kMaxGridZ = 65535;
+constexpr int kMaxGridY = 65535;
 
 // islow FDCT constants (CONST_BITS 13, PASS1_BITS 4)
 constexpr u32 F0_298631336 = 2446, F0_390180644 = 3196, F0_541196100 = 4433,
@@ -159,103 +175,184 @@ __device__ __forceinline__ int32_t quantize(int32_t c, int k, const Tables& t, i
   return i16(ac > 0 ? d : (ac < 0 ? (int32_t)(0u - (u32)d) : 0));
 }
 
+// One 8x8 block in registers: the pixels (row r's 8 bytes, column c in byte
+// c) in, through both transforms, the pixels out as 8 row words.
+// False only where quantize(c, k) is 0: a JPEG product under 2^20 in
+// magnitude (it rounds to 0), an MPEG-2 AC product inside the dead zone.
 template <bool kJpeg, bool kWide>
-__global__ void __launch_bounds__(kThreads)
-    compress_kernel(const uint8_t* __restrict__ x, uint8_t* __restrict__ out, int n, int h,
-                    int w, int dc_prec, const Tables tab) {
-  __shared__ int32_t s[8 * kRow];
-  const int t = threadIdx.x;
-  const int warp = t >> 5, lane = t & 31;
-  const int x0 = blockIdx.x * (kBlocksPerStrip * 8), y0 = blockIdx.y * 8;
-  const int level = kJpeg ? 128 : 0;
-  const int xs = x0 + t;
-  const int slot = (t >> 3) * kGroup + (t & 7);  // where column t of the strip lives
-  const int g = lane * kGroup;                   // this lane's 8x8 block
-  for (int f = blockIdx.z; f < n; f += gridDim.z) {
-    const size_t plane = (size_t)f * h * w;
-    // load, edge-padded by clamping
-    const int xc = min(xs, w - 1);
-#pragma unroll
-    for (int r = 0; r < 8; ++r) {
-      const int yc = min(y0 + r, h - 1);
-      s[r * kRow + slot] = (int32_t)x[plane + (size_t)yc * w + xc] - level;
-    }
-    __syncthreads();
-    int32_t v[8];
-    u32 raw[8];
-    // forward DCT, rows: thread (block lane, row warp)
-    {
-      int32_t* row = s + warp * kRow + g;
-#pragma unroll
-      for (int k = 0; k < 8; ++k) v[k] = row[k];
-      fdct_raw(v, raw);
-#pragma unroll
-      for (int k = 0; k < 8; ++k)
-        row[k] = i16(k % 4 == 0 ? (int32_t)(raw[k] << 4) : descale(raw[k], 9));
-    }
-    __syncthreads();
-    // forward DCT, columns, then quantize: thread (block lane, column warp)
-    {
-      int32_t* col = s + g + warp;
-#pragma unroll
-      for (int k = 0; k < 8; ++k) v[k] = col[k * kRow];
-      fdct_raw(v, raw);
-#pragma unroll
-      for (int k = 0; k < 8; ++k) {
-        const int32_t c = i16(k % 4 == 0 ? descale(raw[k], 4) : descale(raw[k], 17));
-        col[k * kRow] = quantize<kJpeg, kWide>(c, k * 8 + warp, tab, dc_prec);
-      }
-    }
-    __syncthreads();
-    // inverse DCT, rows, with the DC-only fast path
-    {
-      int32_t* row = s + warp * kRow + g;
-#pragma unroll
-      for (int k = 0; k < 8; ++k) v[k] = row[k];
-      if ((v[1] | v[2] | v[3] | v[4] | v[5] | v[6] | v[7]) == 0) {
-        const int32_t dc = i16(v[0] * 8);
-#pragma unroll
-        for (int k = 0; k < 8; ++k) row[k] = dc;
-      } else {
-        idct_raw(v, raw);
-#pragma unroll
-        for (int k = 0; k < 8; ++k)
-          row[k] = i16((int32_t)(raw[k] + (1u << (ROW_SHIFT - 1))) >> ROW_SHIFT);
-      }
-    }
-    __syncthreads();
-    // inverse DCT, columns, to pixels
-    {
-      int32_t* col = s + g + warp;
-#pragma unroll
-      for (int k = 0; k < 8; ++k) v[k] = col[k * kRow];
-      idct_raw(v, raw);
-#pragma unroll
-      for (int k = 0; k < 8; ++k) {
-        const int32_t p = ((int32_t)(raw[k] + W4 * COL_DC_BIAS) >> COL_SHIFT) + level;
-        col[k * kRow] = min(max(p, 0), 255);
-      }
-    }
-    __syncthreads();
-    if (xs < w) {
-#pragma unroll
-      for (int r = 0; r < 8; ++r) {
-        const int y = y0 + r;
-        if (y < h) out[plane + (size_t)y * w + xs] = (uint8_t)s[r * kRow + slot];
-      }
-    }
-    __syncthreads();
+__device__ __forceinline__ bool may_quantize_nonzero(int32_t c, int k, const Tables& t) {
+  if (!kJpeg && k == 0) return true;  // the DC takes its own path
+  const long long lv = kWide ? (long long)c * t.qa[k] : 0;
+  const u32 lvu = (u32)c * (u32)t.qa[k];
+  if (kJpeg) {
+    return kWide ? (unsigned long long)(lv + (JPEG_BIAS - 1))
+                       > (unsigned long long)(2 * JPEG_BIAS - 2)
+                 : lvu + (u32)(JPEG_BIAS - 1) > (u32)(2 * JPEG_BIAS - 2);
   }
+  return kWide ? (unsigned long long)(lv + MPEG_THRESH1) > (unsigned long long)MPEG_THRESH2
+               : lvu + (u32)MPEG_THRESH1 > (u32)MPEG_THRESH2;
 }
 
 template <bool kJpeg, bool kWide>
+__device__ __forceinline__ void block_pipeline(uint64_t (&rw)[8], const Tables& tab,
+                                               int dc_prec) {
+  const int level = kJpeg ? 128 : 0;
+  int32_t b[8][8];
+#pragma unroll
+  for (int r = 0; r < 8; ++r) {
+#pragma unroll
+    for (int c = 0; c < 8; ++c) b[r][c] = (int32_t)((rw[r] >> (8 * c)) & 0xFF) - level;
+  }
+  int32_t t[8];
+  u32 raw[8];
+  // forward DCT, rows
+#pragma unroll
+  for (int r = 0; r < 8; ++r) {
+    fdct_raw(b[r], raw);
+#pragma unroll
+    for (int k = 0; k < 8; ++k)
+      b[r][k] = i16(k % 4 == 0 ? (int32_t)(raw[k] << 4) : descale(raw[k], 9));
+  }
+  // forward DCT, columns, then quantize
+#pragma unroll
+  for (int c = 0; c < 8; ++c) {
+#pragma unroll
+    for (int r = 0; r < 8; ++r) t[r] = b[r][c];
+    fdct_raw(t, raw);
+#pragma unroll
+    for (int k = 0; k < 8; ++k) {
+      const int32_t q = i16(k % 4 == 0 ? descale(raw[k], 4) : descale(raw[k], 17));
+      // the warp skips the quantizer where it gives 0 in every lane
+      const int idx = k * 8 + c;
+      const bool any = __any_sync(__activemask(), may_quantize_nonzero<kJpeg, kWide>(q, idx, tab));
+      b[k][c] = any ? quantize<kJpeg, kWide>(q, idx, tab, dc_prec) : 0;
+    }
+  }
+  // inverse DCT, rows, with the DC-only fast path
+#pragma unroll
+  for (int r = 0; r < 8; ++r) {
+    if ((b[r][1] | b[r][2] | b[r][3] | b[r][4] | b[r][5] | b[r][6] | b[r][7]) == 0) {
+      const int32_t dc = i16(b[r][0] * 8);
+#pragma unroll
+      for (int k = 0; k < 8; ++k) b[r][k] = dc;
+    } else {
+      idct_raw(b[r], raw);
+#pragma unroll
+      for (int k = 0; k < 8; ++k)
+        b[r][k] = i16((int32_t)(raw[k] + (1u << (ROW_SHIFT - 1))) >> ROW_SHIFT);
+    }
+  }
+  // inverse DCT, columns, to pixels
+#pragma unroll
+  for (int r = 0; r < 8; ++r) rw[r] = 0;
+#pragma unroll
+  for (int c = 0; c < 8; ++c) {
+#pragma unroll
+    for (int r = 0; r < 8; ++r) t[r] = b[r][c];
+    idct_raw(t, raw);
+#pragma unroll
+    for (int k = 0; k < 8; ++k) {
+      const int32_t p = ((int32_t)(raw[k] + W4 * COL_DC_BIAS) >> COL_SHIFT) + level;
+      rw[k] |= (uint64_t)min(max(p, 0), 255) << (8 * c);
+    }
+  }
+}
+
+// The 8 rows of the 8x8 block at (y0, x0) of a plane, edge-padded by
+// clamping: one 8-byte word a row (kVec: w % 8 == 0 and the plane on 8
+// bytes), else 8 clamped byte loads.
+template <bool kVec>
+__device__ __forceinline__ void load_block(uint64_t (&rw)[8], const uint8_t* plane, int h, int w,
+                                           int y0, int x0) {
+#pragma unroll
+  for (int r = 0; r < 8; ++r) {
+    const uint8_t* row = plane + (size_t)min(y0 + r, h - 1) * w;
+    if (kVec) {
+      rw[r] = __ldg(reinterpret_cast<const unsigned long long*>(row + x0));
+    } else {
+      uint64_t v = 0;
+#pragma unroll
+      for (int c = 0; c < 8; ++c) v |= (uint64_t)__ldg(row + min(x0 + c, w - 1)) << (8 * c);
+      rw[r] = v;
+    }
+  }
+}
+
+// The pixels of the block at (y0, x0) that lie inside the plane.
+template <bool kVec>
+__device__ __forceinline__ void store_block(const uint64_t (&rw)[8], uint8_t* plane, int h,
+                                            int w, int y0, int x0) {
+#pragma unroll
+  for (int r = 0; r < 8; ++r) {
+    if (y0 + r >= h) break;
+    uint8_t* row = plane + (size_t)(y0 + r) * w;
+    if (kVec) {
+      *reinterpret_cast<unsigned long long*>(row + x0) = rw[r];
+    } else {
+#pragma unroll
+      for (int c = 0; c < 8; ++c)
+        if (x0 + c < w) row[x0 + c] = (uint8_t)(rw[r] >> (8 * c));
+    }
+  }
+}
+
+// grid (ceil(blocks of a frame / 256), frame groups g): thread j of the
+// x-grid owns 8x8 block j of every g-th frame from blockIdx.y, and loads
+// the next frame's block while this one computes.
+template <bool kJpeg, bool kWide, bool kVec>
+__global__ void __launch_bounds__(kThreads, 2)
+    compress_kernel(const uint8_t* __restrict__ x, uint8_t* __restrict__ out, int n, int h,
+                    int w, int dc_prec, const Tables tab) {
+  const long long bw = (w + 7) / 8, blocks = bw * ((h + 7) / 8);
+  const long long j = (long long)blockIdx.x * kThreads + threadIdx.x;
+  if (j >= blocks) return;
+  const int y0 = (int)(j / bw) * 8, x0 = (int)(j % bw) * 8;
+  const size_t plane = (size_t)h * w;
+  int f = blockIdx.y;
+  if (f >= n) return;
+  uint64_t rw[8];
+  load_block<kVec>(rw, x + f * plane, h, w, y0, x0);
+  for (;;) {
+    const int next = f + gridDim.y;
+    uint64_t nx[8];
+    if (next < n) load_block<kVec>(nx, x + next * plane, h, w, y0, x0);
+    block_pipeline<kJpeg, kWide>(rw, tab, dc_prec);
+    store_block<kVec>(rw, out + f * plane, h, w, y0, x0);
+    if (next >= n) break;
+    f = next;
+#pragma unroll
+    for (int r = 0; r < 8; ++r) rw[r] = nx[r];
+  }
+}
+
+template <bool kJpeg, bool kWide, bool kVec>
 int launch(const uint8_t* x, uint8_t* out, int n, int h, int w, int dc_prec,
            const Tables& tab, cudaStream_t s) {
-  const int wp = (w + 7) / 8 * 8;
-  const dim3 grid((wp + kBlocksPerStrip * 8 - 1) / (kBlocksPerStrip * 8), (h + 7) / 8,
-                  n < kMaxGridZ ? n : kMaxGridZ);
-  compress_kernel<kJpeg, kWide><<<grid, kThreads, 0, s>>>(x, out, n, h, w, dc_prec, tab);
+  static int resident = 0;  // blocks of kThreads an SM holds
+  if (resident == 0) {
+    cudaError_t e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+        &resident, compress_kernel<kJpeg, kWide, kVec>, kThreads, 0);
+    if (e != cudaSuccess) return (int)e;
+  }
+  int dev = 0, sms = 0;
+  cudaGetDevice(&dev);
+  cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  const long long xblocks = ((long long)((w + 7) / 8) * ((h + 7) / 8) + kThreads - 1) / kThreads;
+  if (xblocks > 0x7fffffffLL) return (int)cudaErrorInvalidConfiguration;
+  // frame groups: as many as fill the resident blocks in one wave
+  const long long g = std::max(1LL, std::min<long long>(
+      {(long long)n, (long long)sms * resident / xblocks, (long long)kMaxGridY}));
+  compress_kernel<kJpeg, kWide, kVec><<<dim3((unsigned)xblocks, (unsigned)g), kThreads, 0, s>>>(
+      x, out, n, h, w, dc_prec, tab);
   return (int)cudaGetLastError();
+}
+
+template <bool kJpeg, bool kWide>
+int launch_aligned(const uint8_t* x, uint8_t* out, int n, int h, int w, int dc_prec,
+                   const Tables& tab, cudaStream_t s) {
+  const bool vec = w % 8 == 0 && (uintptr_t)x % 8 == 0 && (uintptr_t)out % 8 == 0;
+  return vec ? launch<kJpeg, kWide, true>(x, out, n, h, w, dc_prec, tab, s)
+             : launch<kJpeg, kWide, false>(x, out, n, h, w, dc_prec, tab, s);
 }
 
 }  // namespace
@@ -276,11 +373,11 @@ int vz_compress(const void* x, const int32_t* qa, const int32_t* qb, void* out, 
   uint8_t* os = (uint8_t*)out;
   cudaStream_t s = (cudaStream_t)stream;
   if (jpeg) {
-    return wide ? launch<true, true>(xs, os, n, h, w, dc_prec, tab, s)
-                : launch<true, false>(xs, os, n, h, w, dc_prec, tab, s);
+    return wide ? launch_aligned<true, true>(xs, os, n, h, w, dc_prec, tab, s)
+                : launch_aligned<true, false>(xs, os, n, h, w, dc_prec, tab, s);
   }
-  return wide ? launch<false, true>(xs, os, n, h, w, dc_prec, tab, s)
-              : launch<false, false>(xs, os, n, h, w, dc_prec, tab, s);
+  return wide ? launch_aligned<false, true>(xs, os, n, h, w, dc_prec, tab, s)
+              : launch_aligned<false, false>(xs, os, n, h, w, dc_prec, tab, s);
 }
 
 }  // extern "C"

@@ -20,7 +20,10 @@ the f64 fold is the same torch call on both paths.
 
 It dispatches on the tensor's device: a CPU tensor takes the plain version,
 a CUDA tensor launches ``ssim_band_kernel`` in ``csrc/ssim.cu`` or raises.
-Nothing falls back.
+Nothing falls back.  The kernel has two variants, chosen by its launcher
+(``lane_columns`` in ``csrc/ssim.cu``): 2 columns a lane where the grid
+gives every SM seven blocks, else 1, so the small scales spread over the
+card.
 """
 
 from __future__ import annotations
@@ -170,8 +173,10 @@ def ssim_sums_ref(im1: torch.Tensor, im2: torch.Tensor, need_ssim: bool,
 def _lib() -> ctypes.CDLL:
     lib = _build.load("ssim")
     p, i = ctypes.c_void_p, ctypes.c_int
-    lib.vz_ssim_partials.argtypes = [p, p, p, i, i, i, i, i, i, p]
+    lib.vz_ssim_partials.argtypes = [p, p, p, i, i, i, i, i, i, i, i, p]
     lib.vz_ssim_partials.restype = ctypes.c_int
+    lib.vz_ssim_lane_columns.argtypes = [i] * 5
+    lib.vz_ssim_lane_columns.restype = ctypes.c_int
     return lib
 
 
@@ -191,19 +196,30 @@ def _check(im1: torch.Tensor, im2: torch.Tensor) -> None:
 # wrappers
 # ---------------------------------------------------------------------------
 
+def lane_columns(n: int, h: int, w: int, sms: int) -> int:
+    """The kernel's columns a lane that the launcher takes for (N, H, W)
+    planes on a card of `sms` SMs (builds the library)."""
+    return _lib().vz_ssim_lane_columns(n, h, w, band_rows(w), sms)
+
+
 def ssim_partials(im1: torch.Tensor, im2: torch.Tensor, need_ssim: bool,
-                  need_err: bool) -> torch.Tensor:
-    """B13's band partials, (N, nbh, 6, W) f32."""
+                  need_err: bool, cols: int | None = None) -> torch.Tensor:
+    """B13's band partials, (N, nbh, 6, W) f32.  `cols` forces the kernel's
+    variant (2 or 1 columns a lane; tests and tools), else the launcher
+    picks it."""
     if im1.device.type == "cpu":
         return ssim_partials_ref(im1, im2, need_ssim, need_err)
     _check(im1, im2)
+    if cols not in (None, 1, 2):
+        raise ValueError(f"vszip_tpu_torch: ssim_partials takes cols 1 or 2, got {cols}")
     n, h, w = im1.shape
     b = band_rows(w)
+    vec = w % 2 == 0 and im1.data_ptr() % 8 == 0 and im2.data_ptr() % 8 == 0
     out = torch.empty((n, -(-h // b), 6, w), dtype=torch.float32, device=im1.device)
     with torch.cuda.device(im1.device):
         _build.check(_lib().vz_ssim_partials, im1.data_ptr(), im2.data_ptr(),
                      out.data_ptr(), n, h, w, b, int(bool(need_ssim)),
-                     int(bool(need_err)), _build.stream(im1))
+                     int(bool(need_err)), cols or 0, int(vec), _build.stream(im1))
     LAUNCHES["ssim_sums"] += 1
     return out
 
