@@ -149,6 +149,70 @@ def test_v_fixed_takes_planes_off_16_byte_alignment(cuda, dtype):
         assert _same(kb.rt_blur_v_multi(x, r, p), kb.v_fixed_ref(x, r, p)), (r, p)
 
 
+# B1's vertical stage on chip (ct_v_chip): one warp per 128-byte strip, as
+# v_chip, with the hybrid mirror's slide and the multiply-high quantiser,
+# up to r = 897 (its ring); ct_blur_int raises past that
+@pytest.mark.parametrize("dtype", [torch.uint8, torch.uint16], ids=str)
+@pytest.mark.parametrize("w", [1, 2, 63, 64, 65, 127, 128, 129, 1920, 1921])
+def test_ct_blur_int_matches_plain_at_strip_widths(cuda, dtype, w):
+    x = _rand((3 if w % 2 else 1, 40, w), dtype, cuda, seed=w)
+    for r in (1, 13, 19):
+        assert _same(kb.ct_blur_int(x, r), kb.ct_blur_int_ref(x, r)), r
+
+
+@pytest.mark.parametrize("dtype", [torch.uint8, torch.uint16], ids=str)
+@pytest.mark.parametrize("r,h", [(1, 3), (1, 4), (1, 5), (1, 1080), (1, 1081), (13, 27), (13, 28),
+                                 (13, 29), (13, 1080), (13, 2160), (23, 47), (23, 48), (23, 49),
+                                 (23, 1080), (100, 201), (100, 203), (100, 1601), (539, 1080)],
+                         ids=str)
+def test_ct_blur_int_matches_plain_at_heights(cuda, dtype, r, h):
+    for n in (1, 3):
+        x = _rand((n, h, 144), dtype, cuda, seed=h + r + n)
+        assert _same(kb.ct_blur_int(x, r), kb.ct_blur_int_ref(x, r)), n
+
+
+@pytest.mark.parametrize("dtype", [torch.uint8, torch.uint16], ids=str)
+@pytest.mark.parametrize("value", ["zero", "max"])
+def test_ct_blur_int_at_the_extremes(cuda, dtype, value):
+    top = 0 if value == "zero" else torch.iinfo(dtype).max
+    for r, h in ((1, 3), (13, 1080), (897, 1797)):
+        x = torch.full((2, h, 130), top, dtype=dtype, device=cuda)
+        assert _same(kb.ct_blur_int(x, r), kb.ct_blur_int_ref(x, r)), r
+
+
+@pytest.mark.parametrize("dtype", [torch.uint8, torch.uint16], ids=str)
+@pytest.mark.parametrize("h", [1795, 1798])
+def test_ct_blur_int_matches_plain_at_its_largest_ring(cuda, dtype, h):
+    x = _rand((2, h, 144), dtype, cuda, seed=897 + h)
+    assert _same(kb.ct_blur_int(x, 897), kb.ct_blur_int_ref(x, 897))
+
+
+def test_ct_blur_int_raises_past_its_ring(cuda):
+    x = _rand((1, 1800, 144), torch.uint16, cuda)
+    kb.reset_launches()
+    with pytest.raises(ValueError, match="radius <= 897"):
+        kb.ct_blur_int(x, 898)
+    assert kb.LAUNCHES["ct_blur_int"] == 0
+
+
+@pytest.mark.parametrize("dtype", [torch.uint8, torch.uint16], ids=str)
+def test_ct_blur_int_takes_planes_off_16_byte_alignment(cuda, dtype):
+    x = _offset(_rand((3, 60, 256 // dtype.itemsize), dtype, cuda, seed=8))
+    assert x.is_contiguous() and x.data_ptr() % 16
+    for r in (1, 13, 29):
+        assert _same(kb.ct_blur_int(x, r), kb.ct_blur_int_ref(x, r)), r
+
+
+@pytest.mark.parametrize("r", [13, 897])
+def test_ct_blur_int_counts_one_launch_a_call(cuda, r):
+    x = _rand((1, 2 * r + 3, 64), torch.uint16, cuda, seed=r)
+    kb.reset_launches()
+    kb.ct_blur_int(x, r)
+    kb.ct_blur_int(x, r)
+    assert kb.LAUNCHES == {"ct_blur_int": 2, "rt_blur_h": 0, "rt_blur_v_multi": 0,
+                           "rt_blur_v": 0}
+
+
 def test_axis_radius_limits_are_per_axis(cuda):
     # a wide, short plane: the H window fits, the V window would not
     x = _rand((1, 9, 200), torch.uint16, cuda)
@@ -241,6 +305,73 @@ def test_deband_kernels_read_any_offset_plane(cuda):
                            kd.deband_center_ref(x, wild, mode, True, 15, (900, 900, 900)))
     assert torch.equal(kd.deband_m2_center(x, wild, False, 15, 900),
                        kd.deband_m2_center_ref(x, wild, False, 15, 900))
+
+
+def _m2_key(h, w, rmax, device, seed, wild=False):
+    """Seeded joint keys over the whole alphabet (offsets up to +-rmax
+    whatever the edge distance, so taps are clamped near the edges); with
+    `wild`, some keys outside [0, (2rmax+1)^2) too."""
+    g = torch.Generator(device=device).manual_seed(seed)
+    na = 2 * rmax + 1
+    key = torch.randint(0, na * na, (h, w), generator=g, device=device, dtype=torch.int32)
+    if wild:
+        far = torch.randint(-5 * na * na, 5 * na * na, (h, w), generator=g, device=device,
+                            dtype=torch.int32)
+        key = torch.where(torch.rand((h, w), generator=g, device=device) < 0.1, far, key)
+    return key
+
+
+# B6 from shared-memory tiles (m2_tile): 64x64 pixels a block, each pair of
+# frames staged as one (64 + 2 rmax) x (64 + 2 pad) tile of 32-bit
+# positions at clamped coordinates (odd N: the last pair has one frame);
+# the device-memory taps of m2_kernel past rmax 50
+@pytest.mark.parametrize("shape", [(1, 1, 1), (2, 5, 3), (1, 63, 127), (2, 65, 130),
+                                   (3, 129, 193), (1, 64, 64), (2, 540, 960), (64, 70, 72),
+                                   (63, 70, 72)], ids=str)
+@pytest.mark.parametrize("rmax", [0, 1, 15, 50, 51, 200])
+def test_deband_m2_matches_plain_at_tile_edges(cuda, shape, rmax):
+    x = _rand(shape, torch.uint16, cuda, seed=sum(shape) + rmax)
+    key = _m2_key(*shape[1:], rmax, cuda, seed=rmax)
+    for bf in (True, False):
+        assert _same(kd.deband_m2_center(x, key, bf, rmax, 12337),
+                     kd.deband_m2_center_ref(x, key, bf, rmax, 12337)), bf
+
+
+@pytest.mark.parametrize("rmax,on_chip", [(0, True), (15, True), (50, True), (51, False),
+                                          (200, False)], ids=str)
+def test_deband_m2_tile_limit(cuda, rmax, on_chip):
+    assert kd.m2_on_chip(rmax) is on_chip
+    x = _rand((2, 200, 136), torch.uint16, cuda, seed=rmax)
+    key = _m2_key(200, 136, rmax, cuda, seed=rmax + 1, wild=True)
+    assert _same(kd.deband_m2_center(x, key, True, rmax, 900),
+                 kd.deband_m2_center_ref(x, key, True, rmax, 900))
+
+
+@pytest.mark.parametrize("w", [96, 97, 100])
+def test_deband_m2_takes_planes_off_16_byte_alignment(cuda, w):
+    """Off 16 bytes: a plane one element past an aligned address (element
+    staging, and element stores where the int32 rows are off 16 bytes too),
+    rows of a width not a multiple of 8 or of 4."""
+    x = _offset(_rand((3, 70, w), torch.uint16, cuda, seed=w))
+    assert x.is_contiguous() and x.data_ptr() % 16
+    for rmax in (1, 15):
+        key = _m2_key(70, w, rmax, cuda, seed=w + rmax, wild=True)
+        for bf in (True, False):
+            assert _same(kd.deband_m2_center(x, key, bf, rmax, 12337),
+                         kd.deband_m2_center_ref(x, key, bf, rmax, 12337)), (rmax, bf)
+            y = x.clone()
+            assert _same(kd.deband_m2_center(y, key, bf, rmax, 12337),
+                         kd.deband_m2_center_ref(y, key, bf, rmax, 12337)), (rmax, bf)
+
+
+@pytest.mark.parametrize("rmax", [15, 200])
+def test_deband_m2_counts_one_launch_a_call(cuda, rmax):
+    x = _rand((2, 40, 50), torch.uint16, cuda, seed=rmax)
+    key = _m2_key(40, 50, rmax, cuda, seed=rmax)
+    kd.reset_launches()
+    kd.deband_m2_center(x, key, True, rmax, 900)
+    kd.deband_m2_center(x, key, False, rmax, 900)
+    assert kd.LAUNCHES == {"deband_center": 0, "deband_m2_center": 2}
 
 
 @pytest.mark.parametrize("fmt,args", [

@@ -3,7 +3,7 @@
 ``clock64()`` spans, on one NVIDIA GPU:
 
     python3 tools/kernel_spans.py                   # every kernel below
-    python3 tools/kernel_spans.py vcheck h_fixed    # some of them
+    python3 tools/kernel_spans.py ct_v_quant m2     # some of them
 
 For each kernel it copies the library's source from ``vszip_tpu_torch/csrc/``,
 inserts spans at fixed anchor lines of the kernel, builds the copy with the
@@ -47,6 +47,18 @@ exports the query, and ptxas' registers of the package's build:
   step (one input row) in issuing a group's copies, in waiting for a group
   and the warp, in the groups of 4 steps where no pass mirrors and in those
   at the edges;
+- ``ct_v_quant`` (B1's vertical stage, ``ct_v_chip_kernel``) on the luma and
+  a chroma plane of 64 frames of 1080p uint16, r 13: lane 0's cycles per
+  step (one input row) in issuing a group's copies, in waiting for a group
+  and the warp, in the groups of 4 steps that slide with no mirror and in
+  those at the edges;
+- ``m2`` (B6, ``m2_tile_kernel``) on the 3 launches of ``deband(c)`` on 64
+  frames of 1080p YUV420P16 (range 15): lane 0's cycles per pair of frames
+  in decoding a tile's keys, in the taps, centres and stores, in waiting
+  for the next pair's copies, at the two block barriers, in interleaving
+  the next pair into the pair tile and in issuing the copies of the pair
+  after; and each launch timed on a copy whose taps all read the centre
+  (no bank conflicts, outputs not compared);
 - ``comb_mask`` (B16, ``comb_mask_kernel``) at CombMask's defaults (metric
   0, cthresh 6, mthresh 9, expand) on 64 frames of 1080p and 540x960 of the
   8-bit picture: lane 0's cycles per frame in loading the band's rows and
@@ -68,8 +80,9 @@ exports the query, and ptxas' registers of the package's build:
   thread's life per frame, and the share of IDCT rows, and of warps, that
   take the DC-only path;
 
-For B18, B15, B3/B4, B16, B13 and B14 it also prints the instruction mix of
-each instantiation and of each of its loops (``cuobjdump -sass`` of the
+For B18, B15, B3/B4, B1's vertical stage, B6, B16, B13 and B14 it also
+prints the instruction mix of each instantiation and of each of its loops
+(``cuobjdump -sass`` of the
 package's build), with the counts by class (f32, integer and address,
 loads, stores, other).
 
@@ -96,6 +109,7 @@ from vszip_tpu_torch.kernels import boxblur as kb  # noqa: E402
 from vszip_tpu_torch.kernels import checkmate as kk  # noqa: E402
 from vszip_tpu_torch.kernels import comb_mask as km  # noqa: E402
 from vszip_tpu_torch.kernels import compress as kz  # noqa: E402
+from vszip_tpu_torch.kernels import deband as kd  # noqa: E402
 from vszip_tpu_torch.kernels import eedi3 as ke  # noqa: E402
 from vszip_tpu_torch.kernels import ssim as kss  # noqa: E402
 from vszip_tpu_torch.ops.eedi3 import _pad_rows  # noqa: E402
@@ -110,6 +124,11 @@ RCP = (7.96875, 3.984375, 0.25, 4.0)  # vcheck's reciprocals and vthresh2 (32, 6
 
 T0 = "threadIdx.x == 0 && threadIdx.y == 0"
 LANE0 = "(threadIdx.x & 31) == 0"  # every warp's lane 0
+
+
+def _span(var: str) -> str:
+    """Code that adds the cycles since ``mt_a`` to `var` and restarts ``mt_a``."""
+    return f"{{ const long long mt_b = clock64(); {var} += mt_b - mt_a; mt_a = mt_b; }}\n"
 
 
 def _add(slot: int, value: str, who: str = "threadIdx.x == 0") -> str:
@@ -206,16 +225,16 @@ extern "C" int vz_probe_occupancy(int w, int r, int passes, int* blocks, int* th
         "pass mirrors", "groups at the edges (top, bottom)"), (
         ("  int c0 = 0, t0 = R0 - R, cr = 0;  // s mod R0, (s - R) mod R0, s mod R\n", "",
          "  long long vc_issue = 0, vc_wait = 0, vc_steady = 0, vc_edge = 0;\n"),
-        ("      __syncwarp();  // every lane is done with the rows the copies overwrite\n",
-         "      const long long vc0 = clock64();\n", ""),
-        ("      if (kVec) cp_async_wait<kAheadGroups>();\n", "      const long long vc1 = clock64();\n",
-         ""),
+        ("    if (s0 < h) {\n      __syncwarp();  // every lane is done with the rows the copies "
+         "overwrite\n", "", "      const long long vc0 = clock64();\n"),
+        ("      st.issue(s0 / kGroupRows + kAheadGroups);\n", "",
+         "      const long long vc1 = clock64();\n"),
         ("      __syncwarp();  // rows s0 .. s0+3 are in ring 0, for every lane\n", "",
          "      vc_issue += vc1 - vc0;\n      vc_wait += clock64() - vc1;\n"),
         ("    if (s0 >= s_steady && s0 + kGroupRows <= h) {\n",
          "    const long long vc2 = clock64();\n"
          "    const bool vc_st = s0 >= s_steady && s0 + kGroupRows <= h;\n", ""),
-        ("        advance();\n      }\n    }\n", "",
+        ("          edge(s);\n        }\n        advance();\n      }\n    }\n", "",
          "    (vc_st ? vc_steady : vc_edge) += clock64() - vc2;\n"),
         ("}\n\n// h_fixed's shape for a row of w samples",
          f"  {_add(0, 'vc_issue')} {_add(1, 'vc_wait')} {_add(2, 'vc_steady')} "
@@ -229,6 +248,34 @@ extern "C" int vz_probe_occupancy(int r, int passes, int unused, int* blocks, in
   if (e != cudaSuccess) return (int)e;
   return (int)cudaOccupancyMaxActiveBlocksPerMultiprocessor(blocks, k, 32,
                                                             v_chip_bytes(r, passes));
+}
+"""),
+    "ct_v_quant": ("boxblur", kb, (
+        "issue a copy group", "wait for a group and the warp", "groups of 4 steps that slide "
+        "with no mirror", "groups at the edges (W(0), top, bottom)"), (
+        ("  int c0 = 0, t0 = R0 - R;  // s mod R0, (s - R) mod R0\n", "",
+         "  long long ct_issue = 0, ct_wait = 0, ct_steady = 0, ct_edge = 0;\n"),
+        ("      st.issue(j0 / kGroupRows + kAheadGroups);\n",
+         "      const long long ct0 = clock64();\n", ""),
+        ("      if (kVec) cp_async_wait<kAheadGroups>();\n"
+         "      __syncwarp();  // rows j0 .. j0+3 are in the ring, for every lane\n",
+         "      const long long ct1 = clock64();\n",
+         "      ct_issue += ct1 - ct0;\n      ct_wait += clock64() - ct1;\n"),
+        ("    if (j0 >= R && j0 + kGroupRows <= h) {\n",
+         "    const long long ct2 = clock64();\n"
+         "    const bool ct_st = j0 >= R && j0 + kGroupRows <= h;\n", ""),
+        ("          edge(j);\n        }\n        advance();\n      }\n    }\n", "",
+         "    (ct_st ? ct_steady : ct_edge) += clock64() - ct2;\n"),
+        ("}\n\nvoid fixed_constants(",
+         f"  {_add(0, 'ct_issue')} {_add(1, 'ct_wait')} {_add(2, 'ct_steady')} "
+         f"{_add(3, 'ct_edge')} {_add(SLOTS - 1, 'S')}\n", "")), """
+extern "C" int vz_probe_occupancy(int r, int unused, int unused2, int* blocks, int* threads) {
+  const void* k = (const void*)ct_v_chip_kernel<uint16_t, true>;
+  *threads = 32;
+  cudaError_t e = cudaFuncSetAttribute(k, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                       (int)v_chip_bytes(r, 1));
+  if (e != cudaSuccess) return (int)e;
+  return (int)cudaOccupancyMaxActiveBlocksPerMultiprocessor(blocks, k, 32, v_chip_bytes(r, 1));
 }
 """),
     "comb_mask": ("comb_mask", km, (
@@ -256,6 +303,37 @@ extern "C" int vz_probe_occupancy(int metric_1, int motion, int aligned, int* bl
                                      : (const void*)comb_mask_kernel<false, false, true>);
   *threads = 32 * kWarps;
   return (int)cudaOccupancyMaxActiveBlocksPerMultiprocessor(blocks, k, 32 * kWarps, 0);
+}
+"""),
+    "m2": ("deband", kd, (
+        "decode an item's keys", "taps, centres and stores", "wait for the next pair's copies",
+        "block barriers (2)", "interleave the next pair into the pair tile",
+        "issue the copies of the pair after"), (
+        ("  if (1 < steps) stage(1);\n", "",
+         "  long long mt_dec = 0, mt_comp = 0, mt_wait = 0, mt_bar = 0, mt_il = 0, mt_stage = 0,\n"
+         "            mt_n = 0;\n"),
+        ("    const bool second = f + 1 < n;\n", "", "    long long mt_a = clock64();\n"),
+        ("    if (t != cur) {\n      decode(t);\n      cur = t;\n    }\n", "",
+         "    " + _span("mt_dec")),
+        ("    if (k + 1 < steps) {\n      cp_async_wait_all();\n",
+         "    " + _span("mt_comp") + "    ++mt_n;\n", "      " + _span("mt_wait")),
+        ("      __syncthreads();  // this pair's tile is read, the next pair's frames are in\n",
+         "", "      " + _span("mt_bar")),
+        ("      __syncthreads();  // the next pair's tile is in; the frame tiles are free\n",
+         "      " + _span("mt_il"), "      " + _span("mt_bar")),
+        ("      if (k + 2 < steps) stage(k + 2);\n", "", "      " + _span("mt_stage")),
+        ("}\n\ndim3 tile_grid(int h, int w) {",
+         f"  {_add(0, 'mt_dec', LANE0)} {_add(1, 'mt_comp', LANE0)} {_add(2, 'mt_wait', LANE0)} "
+         f"{_add(3, 'mt_bar', LANE0)} {_add(4, 'mt_il', LANE0)} {_add(5, 'mt_stage', LANE0)} "
+         f"{_add(SLOTS - 1, 'mt_n', LANE0)}\n", "")), """
+extern "C" int vz_probe_occupancy(int rmax, int unused, int unused2, int* blocks, int* threads) {
+  const void* k = (const void*)m2_tile_kernel<true, true>;
+  *threads = kM2Threads;
+  cudaError_t e = cudaFuncSetAttribute(k, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                       (int)kMaxSmemBytes);
+  if (e != cudaSuccess) return (int)e;
+  return (int)cudaOccupancyMaxActiveBlocksPerMultiprocessor(blocks, k, kM2Threads,
+                                                            M2Tile(rmax).bytes());
 }
 """),
     "subspl": ("bilateral_dither", kbd, (
@@ -607,6 +685,52 @@ def v_fixed(probe, g, dev) -> None:
                 "(lane 0 of each warp, per step)", call, (r, passes, 0))
 
 
+def ct_v_quant(probe, g, dev) -> None:
+    for h, w in ((1080, 1920), (540, 960)):
+        x = torch.randint(0, 1 << 16, (64, h, w), generator=g, device=dev,
+                          dtype=torch.int32).to(torch.uint16)
+        measure("ct_v_quant", probe, f"ct_v_chip r 13, 64x{h}x{w} u16 (lane 0 of each warp, "
+                "per step)", lambda: kb._ct_v(x, 13), (13, 0, 0))
+
+
+def m2_calls(g, dev):
+    """The arguments of the 3 B6 launches of ``deband(c)`` on 64 frames of
+    1080p YUV420P16 (chip_smoke.py's ``deband_m2`` row), one per plane."""
+    import vszip_tpu_torch as vt
+
+    planes = [torch.randint(0, 1 << 16, (64, h, w), generator=g, device=dev,
+                            dtype=torch.int32).to(torch.uint16)
+              for h, w in ((1080, 1920), (540, 960), (540, 960))]
+    clip = vt.Clip.from_planes(planes, vt.get_format("YUV420P16"), device=dev)
+    calls, fn = [], kd.deband_m2_center
+    kd.deband_m2_center = lambda *a: calls.append(a) or fn(*a)
+    try:
+        vt.deband(clip)
+    finally:
+        kd.deband_m2_center = fn
+    return calls
+
+
+def m2(probe, g, dev) -> None:
+    # a copy whose taps all read the centre: no bank conflicts (its outputs
+    # differ and are not compared), to time what the random taps cost
+    src = _build.source("deband").read_text()
+    taps = "          const int o1 = (int)(p << 16) >> 16, o2 = (int)p >> 16;\n"
+    if src.count(taps) != 1:
+        raise SystemExit("kernel_spans: m2_tile's tap offsets not found")
+    centre = build("deband", src.replace(taps, "          const int o1 = 0, o2 = 0;\n"),
+                   "m2_centre", kd._lib())
+    for x, key, bf, rmax, thr in m2_calls(g, dev):
+        n, h, w = x.shape
+
+        def call():
+            return kd.deband_m2_center(x, key, bf, rmax, thr)
+        measure("m2", probe, f"B6 m2_tile deband() plane {n}x{h}x{w}, rmax {rmax}, blur_first "
+                f"{bf} (lane 0 of each warp, per pair of frames)", call, (rmax, 0, 0))
+        print(f"B6 with every tap at the centre (no bank conflicts): "
+              f"{events_ms(lambda: using(kd, centre, call)):.3f} ms", flush=True)
+
+
 def comb_mask(probe, g, dev) -> None:
     for h, w in ((1080, 1920), (540, 960)):
         x = int8_picture(64, h, w, g, dev)
@@ -720,15 +844,17 @@ def compress(probe, g, dev) -> None:
 
 
 RUNS = {"eedi3_line": eedi3_line, "vcheck": vcheck, "h_fixed": h_fixed, "subspl": subspl,
-        "checkmate": checkmate, "v_fixed": v_fixed, "comb_mask": comb_mask,
-        "ssim": ssim, "compress": compress}
+        "checkmate": checkmate, "v_fixed": v_fixed, "ct_v_quant": ct_v_quant, "m2": m2,
+        "comb_mask": comb_mask, "ssim": ssim, "compress": compress}
 # the instantiations the bench's calls launch (B18: uint16, no ref)
 SASS_OF = {"subspl": "subspl_kernelItLb0E", "checkmate": "checkmate_kernel",
            "v_fixed": "v_chip_kernelItLi[15]ELb1E", "comb_mask": "comb_mask_kernelILb0ELb1ELb1E",
            "ssim": "ssim_band_kernelILb1ELb1ELi[12]E",
-           "compress": "compress_kernelILb(0ELb0|1ELb1)ELb1E"}
+           "compress": "compress_kernelILb(0ELb0|1ELb1)ELb1E",
+           "ct_v_quant": "ct_v_chip_kernelItLb1E", "m2": "m2_tile_kernelILb1ELb1E"}
 # the kernel function of a table whose name is not <table>_kernel
-FUNCTION = {"v_fixed": "v_chip_kernel", "ssim": "ssim_band_kernel"}
+FUNCTION = {"v_fixed": "v_chip_kernel", "ssim": "ssim_band_kernel",
+            "ct_v_quant": "ct_v_chip_kernel", "m2": "m2_tile_kernel"}
 SASS_LINE = re.compile(r"/\*([0-9a-f]{4,})\*/\s+(?:@!?U?P\w+\s+)?([A-Z][A-Z0-9_]*)[^;]*;")
 
 

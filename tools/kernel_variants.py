@@ -3,14 +3,16 @@
 the package's own build, on one NVIDIA GPU:
 
     python3 tools/kernel_variants.py          # every variant below
-    python3 tools/kernel_variants.py B13      # those of some kernels
+    python3 tools/kernel_variants.py B1 B6    # those of some kernels
 
 Each variant replaces one constant line of a source in
 ``vszip_tpu_torch/csrc/``, builds the copy with the package's nvcc flags into
 ``build/kernel_spans/``, holds its outputs equal to the package's build, and
 times the package and the copy in turns (package, copy, copy, package; CUDA
 events, 10 calls each) at the bench's shapes: BoxBlur's vertical passes
-(B3 at r 13 x 5, B4 at r 23) on 64 frames of 1080p YUV420P16, CombMask (B16)
+(B3 at r 13 x 5, B4 at r 23, B1's vertical stage at r 13) on 64 frames of
+1080p YUV420P16, Deband mode 2's centre (B6) on the three planes of
+``deband(c)`` on such a clip, CombMask (B16)
 at its defaults on 64 frames of 1080p YUV420P8 of ``chip_smoke.py``'s
 8-bit picture, SSIMULACRA2's B13 on the 11 launches of its 1080p row (by
 device time, ``torch.profiler``: the small scales' launches take less
@@ -31,6 +33,7 @@ import kernel_spans as ks  # noqa: E402
 from vszip_tpu_torch import _build  # noqa: E402
 from vszip_tpu_torch.kernels import boxblur as kb  # noqa: E402
 from vszip_tpu_torch.kernels import comb_mask as km  # noqa: E402
+from vszip_tpu_torch.kernels import deband as kd  # noqa: E402
 from vszip_tpu_torch.kernels import ssim as kss  # noqa: E402
 
 # (library, the constant's line in the package's source, its replacement,
@@ -46,6 +49,15 @@ VARIANTS = [
     ("boxblur", "constexpr int kAheadGroups = 4;", "constexpr int kAheadGroups = 8;", "B3"),
     ("boxblur", "constexpr int kAheadGroups = 4;", "constexpr int kAheadGroups = 2;", "B4"),
     ("boxblur", "constexpr int kAheadGroups = 4;", "constexpr int kAheadGroups = 8;", "B4"),
+    # B1's vertical stage (ct_v_chip): copies 32 rows ahead (v_chip's too)
+    ("boxblur", "constexpr int kAheadGroups = 4;", "constexpr int kAheadGroups = 8;", "B1"),
+    # B6 (m2_tile): tiles of 32 rows (2 rows of 4 pixels a thread); 2 or 8
+    # pairs of frames an item; 2 or 4 blocks an SM
+    ("deband", "constexpr int kM2TileY = 64;", "constexpr int kM2TileY = 32;", "B6"),
+    ("deband", "constexpr int kM2Group = 4;", "constexpr int kM2Group = 2;", "B6"),
+    ("deband", "constexpr int kM2Group = 4;", "constexpr int kM2Group = 8;", "B6"),
+    ("deband", "__launch_bounds__(kM2Threads, 3)", "__launch_bounds__(kM2Threads, 2)", "B6"),
+    ("deband", "__launch_bounds__(kM2Threads, 3)", "__launch_bounds__(kM2Threads, 4)", "B6"),
     # B13's blocks an SM at 2 columns a lane: 2 (128 registers) or 4 (64)
     ("ssim", "__launch_bounds__(kMaxThreads, kCols == 2 ? 3 : 4)",
      "__launch_bounds__(kMaxThreads, kCols == 2 ? 2 : 4)", "B13"),
@@ -67,7 +79,10 @@ def main() -> int:
            .to(torch.uint16) for s in ((64, 1080, 1920), (64, 540, 960), (64, 540, 960))]
     p8 = [ks.int8_picture(64, h, w, g, dev) for h, w in ((1080, 1920), (540, 960), (540, 960))]
     b13 = [a for _, a in ks.ssim_calls(*ks.ssim_clips(g, dev))] if any(v[3] == "B13" for v in chosen) else []
+    b6 = ks.m2_calls(g, dev) if any(v[3] == "B6" for v in chosen) else []
     calls = {"B16": (km, lambda: [km.comb_mask(p, 6, 9, False, True) for p in p8]),
+             "B1": (kb, lambda: [kb._ct_v(p, 13) for p in p16]),
+             "B6": (kd, lambda: [kd.deband_m2_center(*a) for a in b6]),
              "B3": (kb, lambda: [kb.rt_blur_v_multi(p, 13, 5) for p in p16]),
              "B4": (kb, lambda: [kb.rt_blur_v(p, 23) for p in p16]),
              "B13": (kss, lambda: [kss.ssim_partials(*a) for a in b13])}

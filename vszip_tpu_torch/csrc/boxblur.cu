@@ -9,8 +9,8 @@
 //               does not take (more passes, larger rings)
 //   h_fixed     runtime horizontal fixed-point pass(es)    (B2 rt_blur_h_pallas, and
 //                                                           the H stage of B1)
-//   ct_v_quant  comptime vertical column sums, quantised   (V stage of B1
-//                                                           ct_blur_int_pallas)
+//   ct_v_chip   comptime vertical column sums, quantised,  (V stage of B1
+//               on chip (a ring in shared memory, r <= 897) ct_blur_int_pallas)
 //
 // The fixed point that must survive bit for bit (ops/boxblur.py:122-139):
 //   inv  = (2^32 + r) / (2r+1),  inv2 = inv >> 16
@@ -35,7 +35,11 @@
 // every pass through device memory, reached about 1.3 TB/s and read and
 // wrote the plane once per pass: v_chip runs all passes of a 128-byte
 // strip in one warp as a wavefront, so the plane is read and written once
-// per call (see v_chip_kernel).
+// per call (see v_chip_kernel).  B1's vertical stage was a column walk that
+// spent 55-66% of a column in its runtime division and stores and 18-33%
+// summing the 2r+1 taps of each edge row: ct_v_chip slides every row, edge
+// rows too, and divides by a per-call multiply-high (see ct_v_chip_kernel).
+// The op's comptime path takes r <= 22, so the ring's limit is the only one.
 //
 // Plain C interface, loaded with ctypes.  Every entry launches on the given
 // stream, does not synchronise, allocates nothing, and returns
@@ -83,13 +87,6 @@ __device__ __forceinline__ int mirror_periodic(int k, int n) {
   k %= 2 * n;
   if (k < 0) k += 2 * n;
   return k < n ? k : 2 * n - 1 - k;
-}
-
-__device__ __forceinline__ int mirror_hybrid(int y, int off, int n) {
-  const int k = y + off;
-  if (k < 0) return min(-k, n - 1);
-  if (k > n - 1) return max(n - 1 - off, 0);
-  return k;
 }
 
 __device__ __forceinline__ long long fixed_c0(long long w0, long long inv) {
@@ -177,12 +174,80 @@ struct Word {
     if (sizeof(T) == 2) return __byte_perm(o[0], o[1], 0x7632);
     return __byte_perm(__byte_perm(o[0], o[1], 0x0062), __byte_perm(o[2], o[3], 0x0062), 0x5410);
   }
+  // the outputs o[i] (bits 0.. of each) packed into one word
+  static __device__ __forceinline__ uint32_t join(const uint32_t* o) {
+    if (sizeof(T) == 2) return __byte_perm(o[0], o[1], 0x5410);
+    return __byte_perm(__byte_perm(o[0], o[1], 0x0040), __byte_perm(o[2], o[3], 0x0040), 0x5410);
+  }
 };
 
 __device__ __forceinline__ int wrap(int v, int n) {
   v %= n;
   return v < 0 ? v + n : v;
 }
+
+// One warp's walk down a 128-byte strip of one frame (v_chip, ct_v_chip):
+// lane l owns word l (K columns from xl) of every row.  issue(g) fills
+// rows 4g .. 4g+3 into the input ring of R0 rows of 32 words, 16-byte
+// cp.async copies with lane l copying chunk l % 8 of row l / 8 (kVec: rows
+// 16-byte aligned), else element loads into registers that are stored when
+// the next group is issued; store(v) writes the next output row's word.
+template <typename T, bool kVec>
+struct StripWalk {
+  static constexpr int K = Word<T>::K, E = 16 / sizeof(T);  // samples per word, per chunk
+  const T* csrc;        // this lane's chunk of the next group
+  uint32_t* cdst;       // its place in the ring's first slots
+  T* orow;              // the next output row's word
+  int h, w, R0, crow, cx, xl;
+  int cslot = 0;        // ring slot of the next group's first row
+  uint4 pend;           // element loads: the chunk of the last group issued
+  uint32_t* pend_dst = nullptr;
+
+  __device__ StripWalk(const T* in, T* out, uint32_t* ring, size_t base, int strip, int h_,
+                       int w_, int R0_, int lane)
+      : h(h_), w(w_), R0(R0_), crow(lane >> 3) {
+    const int x0 = strip * 32 * K;
+    xl = x0 + lane * K;
+    cx = x0 + (lane & 7) * E;
+    csrc = in + base + crow * w + cx;
+    cdst = ring + crow * 32 + (lane & 7) * 4;
+    orow = out + base + xl;
+  }
+  __device__ __forceinline__ void issue(int g) {
+    const int row = g * kGroupRows + crow;
+    uint32_t* d = cdst + (cslot + crow >= R0 ? cslot - R0 : cslot) * 32;
+    if (kVec) {
+      if (row < h && cx < w) cp_async16(d, csrc);
+      cp_async_commit();
+    } else {
+      if (pend_dst != nullptr) *reinterpret_cast<uint4*>(pend_dst) = pend;
+      pend_dst = nullptr;
+      if (row < h) {
+        uint32_t v[4] = {0, 0, 0, 0};
+#pragma unroll
+        for (int i = 0; i < E; ++i) {
+          if (cx + i < w) v[i / K] |= (uint32_t)csrc[i] << (8 * sizeof(T) * (i % K));
+        }
+        pend = make_uint4(v[0], v[1], v[2], v[3]);
+        pend_dst = d;
+      }
+    }
+    csrc += (uint32_t)kGroupRows * w;
+    cslot += kGroupRows;
+    if (cslot >= R0) cslot -= R0;
+  }
+  __device__ __forceinline__ void store(uint32_t v) {
+    if (kVec) {
+      if (xl < w) *reinterpret_cast<uint32_t*>(orow) = v;
+    } else {
+#pragma unroll
+      for (int k = 0; k < K; ++k) {
+        if (xl + k < w) orow[k] = (T)Word<T>::at(v, k);
+      }
+    }
+    orow += w;
+  }
+};
 
 // v_fixed on chip: all P passes of one strip of 128 bytes of one frame's
 // rows (64 uint16 or 128 uint8 columns) in one warp, lane l on word l of
@@ -211,61 +276,14 @@ __global__ void __launch_bounds__(32)
     v_chip_kernel(const T* __restrict__ in, T* __restrict__ out, int h, int w, int r, int strips,
                   long long inv, uint32_t inv2) {
   using Wd = Word<T>;
-  constexpr int K = Wd::K, E = 16 / sizeof(T);  // samples per word, per 16-byte chunk
+  constexpr int K = Wd::K;  // samples per word
   extern __shared__ uint32_t ring[];
   const int lane = threadIdx.x;
   const int R = 2 * r + 1, R0 = R + kChipAheadRows;
   uint32_t* ring0 = ring;             // R0 input rows of 32 words
   uint32_t* rings = ring + R0 * 32;   // R slots of P-1 rows: pass p's at word (p-1)*32
   const int f = blockIdx.x / strips, strip = blockIdx.x - f * strips;
-  const size_t base = (size_t)f * h * w;
-  const int x0 = strip * 32 * K;
-  const int xl = x0 + lane * K;  // this lane's first column
-  // this lane's chunk of a copy group: row lane / 8, columns cx .. cx + E - 1
-  const int crow = lane >> 3, cx = x0 + (lane & 7) * E;
-  const T* csrc = in + base + crow * w + cx;  // its first group's chunk
-  uint32_t* cdst = ring0 + crow * 32 + (lane & 7) * 4;
-  T* orow = out + base + xl;  // the next output row's word
-  int cslot = 0;              // ring 0 slot of the next group's first row
-  uint4 pend;                 // element loads: the chunk of the last group issued
-  uint32_t* pend_dst = nullptr;
-
-  // group g's copies into ring 0; element loads store the previous group's
-  // chunk now and load this one into `pend`
-  auto issue = [&](int g) {
-    const int row = g * kGroupRows + crow;
-    uint32_t* d = cdst + (cslot + crow >= R0 ? cslot - R0 : cslot) * 32;
-    if (kVec) {
-      if (row < h && cx < w) cp_async16(d, csrc);
-      cp_async_commit();
-    } else {
-      if (pend_dst != nullptr) *reinterpret_cast<uint4*>(pend_dst) = pend;
-      pend_dst = nullptr;
-      if (row < h) {
-        uint32_t v[4] = {0, 0, 0, 0};
-#pragma unroll
-        for (int i = 0; i < E; ++i) {
-          if (cx + i < w) v[i / K] |= (uint32_t)csrc[i] << (8 * sizeof(T) * (i % K));
-        }
-        pend = make_uint4(v[0], v[1], v[2], v[3]);
-        pend_dst = d;
-      }
-    }
-    csrc += (uint32_t)kGroupRows * w;
-    cslot += kGroupRows;
-    if (cslot >= R0) cslot -= R0;
-  };
-  auto store = [&](uint32_t v) {
-    if (kVec) {
-      if (xl < w) *reinterpret_cast<uint32_t*>(orow) = v;
-    } else {
-#pragma unroll
-      for (int k = 0; k < K; ++k) {
-        if (xl + k < w) orow[k] = (T)Wd::at(v, k);
-      }
-    }
-    orow += w;
-  };
+  StripWalk<T, kVec> st(in, out, ring0, (size_t)f * h * w, strip, h, w, R0, lane);
 
   uint32_t wx[P][K], k0[P][K];
 #pragma unroll
@@ -298,7 +316,7 @@ __global__ void __launch_bounds__(32)
       }
       lead = Wd::pack(o);
     }
-    store(lead);
+    st.store(lead);
   };
   // a step at the top or the bottom: passes that have not started or are
   // done skip it, the others take their window sum W0 or mirror
@@ -344,17 +362,17 @@ __global__ void __launch_bounds__(32)
 #pragma unroll
       for (int k = 0; k < K; ++k) wx[p][k] += Wd::at(lead, k) - Wd::at(trail, k);
       carry = Wd::pack(o);
-      if (p == P - 1) store(carry);
+      if (p == P - 1) st.store(carry);
     }
   };
 
-  for (int g = 0; g < kAheadGroups; ++g) issue(g);
+  for (int g = 0; g < kAheadGroups; ++g) st.issue(g);
   const int S = h + P * (r + 1);                // steps: the last pass gives row h-1 at S-1
   const int s_steady = (P + 1) * (r + 1) - 1;  // from here to h-1 no pass mirrors
   for (int s0 = 0; s0 < S; s0 += kGroupRows) {
     if (s0 < h) {
       __syncwarp();  // every lane is done with the rows the copies overwrite
-      issue(s0 / kGroupRows + kAheadGroups);
+      st.issue(s0 / kGroupRows + kAheadGroups);
       if (kVec) cp_async_wait<kAheadGroups>();
       __syncwarp();  // rows s0 .. s0+3 are in ring 0, for every lane
     }
@@ -616,51 +634,105 @@ __global__ void __launch_bounds__(kMaxRowThreads)
   }
 }
 
-// One thread per column: the comptime path's raw vertical window sums under
-// the hybrid mirror, quantised to the plane's type.  Edge rows (r at the
-// top, r at the bottom) sum their 2r+1 taps directly; the interior runs a
-// sliding sum, loaded kChunk rows ahead.
-template <typename T>
-__global__ void ct_v_quant_kernel(const T* in, T* out, int n, int h, int w,
-                                  int r) {
-  const int x = blockIdx.x * blockDim.x + threadIdx.x;
-  if (x >= w) return;
-  const int k2 = 2 * (2 * r + 1);
-  const long long ws = w;
-  for (int f = blockIdx.y; f < n; f += gridDim.y) {
-    const long long base = (long long)f * h * w + x;
-    const T* src = in + base;
-    T* dst = out + base;
-    int col = 0;
-    for (int y = 0; y <= r; ++y) {
-      col = 0;
-      for (int o = -r; o <= r; ++o) col += src[mirror_hybrid(y, o, h) * ws];
-      dst[y * ws] = (T)((2 * col + k2 / 2) / k2);
-    }
-    const int end = h - r;  // interior rows r+1 .. h-r-1 slide
-    for (int y0 = r + 1; y0 < end; y0 += kChunk) {
-      int lead[kChunk], trail[kChunk];
+// B1's vertical stage on chip: the comptime vertical sums of one 128-byte strip of
+// one frame in one warp, lane l on word l of each row, one warp per block:
+// v_chip_kernel's one-pass case with the hybrid mirror and the quantised
+// output.  Input row s enters at step s, by the
+// same 16-byte cp.async copy groups (element loads where rows are not
+// 16-byte aligned) into a ring of the last 2r+1+kChipAheadRows rows.  With
+// 2r < h the hybrid mirror reads row -k above the top and, for tap offset o
+// past the bottom, row h-1-o, so every output row slides from the one
+// before (x[k]: input row k, W(y): the sum of row y's 2r+1 taps):
+//   W(0)   = x[0] + 2 (x[1] + ... + x[r])
+//   W(y+1) = W(y) + x[y+1+r] - x[r-y]   (y < r)
+//          = W(y) + x[y+1+r] - x[y-r]   (interior)
+//          = W(y) + x[y]     - x[y-r]   (y+1+r > h-1)
+// Output row y leaves at step y+r+1; the rows it reads are all in the ring.  The
+// output (2W + k) / (2k), k = 2r+1, is (N * m) >> sh with the wrapper's
+// per-call multiplier: exact for every N = 2W + k up to k * 131071
+// (kernels/boxblur.py quantizer), one 32x32->64 multiply and a shift.  W
+// stays below 2^32 (k * 65535, r <= 897).
+template <typename T, bool kVec>
+__global__ void __launch_bounds__(32)
+    ct_v_chip_kernel(const T* __restrict__ in, T* __restrict__ out, int h, int w, int r,
+                     int strips, uint32_t m, int sh) {
+  using Wd = Word<T>;
+  constexpr int K = Wd::K;  // samples per word
+  extern __shared__ uint32_t ring[];
+  const int lane = threadIdx.x;
+  const int R = 2 * r + 1, R0 = R + kChipAheadRows;
+  const int f = blockIdx.x / strips, strip = blockIdx.x - f * strips;
+  StripWalk<T, kVec> st(in, out, ring, (size_t)f * h * w, strip, h, w, R0, lane);
+  auto quant = [&](uint32_t wx) {
+    return (uint32_t)(((unsigned long long)(2u * wx + (uint32_t)R) * m) >> sh);
+  };
+
+  uint32_t wx[K];
 #pragma unroll
-      for (int j = 0; j < kChunk; ++j) {
-        const int y = y0 + j;
-        if (y < end) {
-          lead[j] = src[(y + r) * ws];
-          trail[j] = src[(y - r - 1) * ws];
-        }
-      }
+  for (int k = 0; k < K; ++k) wx[k] = 0;
+  int c0 = 0, t0 = R0 - R;  // s mod R0, (s - R) mod R0
+  auto advance = [&]() {
+    c0 = c0 + 1 == R0 ? 0 : c0 + 1;
+    t0 = t0 + 1 == R0 ? 0 : t0 + 1;
+  };
+  // output row s-r-1 from the ring's rows s and s-2r-1
+  auto steady = [&]() {
+    const uint32_t lead = ring[c0 * 32 + lane], trail = ring[t0 * 32 + lane];
+    uint32_t o[K];
 #pragma unroll
-      for (int j = 0; j < kChunk; ++j) {
-        const int y = y0 + j;
-        if (y < end) {
-          col += lead[j] - trail[j];
-          dst[y * ws] = (T)((2 * col + k2 / 2) / k2);
-        }
-      }
+    for (int k = 0; k < K; ++k) {
+      o[k] = quant(wx[k]);
+      wx[k] += Wd::at(lead, k) - Wd::at(trail, k);
     }
-    for (int y = end; y < h; ++y) {
-      col = 0;
-      for (int o = -r; o <= r; ++o) col += src[mirror_hybrid(y, o, h) * ws];
-      dst[y * ws] = (T)((2 * col + k2 / 2) / k2);
+    st.store(Wd::join(o));
+  };
+  // a step that sums W(0), or mirrors at the top or the bottom
+  auto edge = [&](int s) {
+    const uint32_t row = ring[c0 * 32 + lane];  // row s, while s < h
+    if (s <= r) {
+      const uint32_t times = s > 0 ? 2u : 1u;
+#pragma unroll
+      for (int k = 0; k < K; ++k) wx[k] += times * Wd::at(row, k);
+      return;
+    }
+    const int y = s - r - 1;
+    const uint32_t lead = s < h ? row : ring[wrap(c0 - r - 1, R0) * 32 + lane];
+    const uint32_t trail = y >= r ? ring[t0 * 32 + lane] : ring[(R - s) * 32 + lane];
+    uint32_t o[K];
+#pragma unroll
+    for (int k = 0; k < K; ++k) {
+      o[k] = quant(wx[k]);
+      wx[k] += Wd::at(lead, k) - Wd::at(trail, k);
+    }
+    st.store(Wd::join(o));
+  };
+
+  for (int g = 0; g < kAheadGroups; ++g) st.issue(g);
+  const int S = h + r + 1;  // steps: the last gives row h-1
+  for (int j0 = 0; j0 < S; j0 += kGroupRows) {
+    if (j0 < h) {
+      __syncwarp();  // every lane is done with the rows the copies overwrite
+      st.issue(j0 / kGroupRows + kAheadGroups);
+      if (kVec) cp_async_wait<kAheadGroups>();
+      __syncwarp();  // rows j0 .. j0+3 are in the ring, for every lane
+    }
+    // from step R to h-1 no step sums W(0) or mirrors
+    if (j0 >= R && j0 + kGroupRows <= h) {
+#pragma unroll
+      for (int i = 0; i < kGroupRows; ++i) {
+        steady();
+        advance();
+      }
+    } else {
+#pragma unroll 1
+      for (int j = j0; j < j0 + kGroupRows && j < S; ++j) {
+        if (j >= R && j < h) {
+          steady();
+        } else {
+          edge(j);
+        }
+        advance();
+      }
     }
   }
 }
@@ -810,10 +882,28 @@ int launch_v_chip(const void* in, void* out, int n, int h, int w, int r, int pas
 }
 
 template <typename T>
-int launch_ct_v_quant(const void* in, void* out, int n, int h, int w, int r,
-                      cudaStream_t s) {
-  ct_v_quant_kernel<T><<<column_grid(n, w), kColThreads, 0, s>>>(
-      (const T*)in, (T*)out, n, h, w, r);
+int launch_ct_v_chip(const void* in, void* out, int n, int h, int w, int r, uint32_t m, int sh,
+                     cudaStream_t s) {
+  const int cols = kStripBytes / sizeof(T);
+  const long long strips = (w + cols - 1) / cols;
+  const size_t bytes = v_chip_bytes(r, 1);
+  const long long blocks = n * strips;
+  if (bytes > kMaxSmemBytes || blocks > 0x7fffffffLL) return (int)cudaErrorInvalidValue;
+  if (blocks == 0) return 0;
+  const bool vec = (uintptr_t)in % 16 == 0 && (uintptr_t)out % 16 == 0 &&
+                   (size_t)w * sizeof(T) % 16 == 0;
+  const void* kernel = vec ? reinterpret_cast<const void*>(ct_v_chip_kernel<T, true>)
+                           : reinterpret_cast<const void*>(ct_v_chip_kernel<T, false>);
+  long long resident;  // sets the kernel's dynamic shared memory allowance
+  const cudaError_t e = resident_blocks(kernel, 32, bytes, &resident);
+  if (e != cudaSuccess) return (int)e;
+  if (vec) {
+    ct_v_chip_kernel<T, true><<<(unsigned)blocks, 32, bytes, s>>>(
+        (const T*)in, (T*)out, h, w, r, (int)strips, m, sh);
+  } else {
+    ct_v_chip_kernel<T, false><<<(unsigned)blocks, 32, bytes, s>>>(
+        (const T*)in, (T*)out, h, w, r, (int)strips, m, sh);
+  }
   return (int)cudaGetLastError();
 }
 
@@ -853,12 +943,13 @@ int vz_h_fixed(const void* in, void* out, void* scratch, int elem_bytes, long lo
              : launch_h_fixed<uint16_t>(in, out, scratch, rows, w, r, passes, s);
 }
 
-int vz_ct_v_quant(const void* in, void* out, int elem_bytes, int n, int h, int w,
-                  int r, void* stream) {
+// B1's vertical stage (v_chip_bytes(r, 1) <= kMaxSmemBytes, r <= 897): (2*col + k) /
+// (2k) as (N * m) >> sh, m and sh from the wrapper.
+int vz_ct_v_chip(const void* in, void* out, int elem_bytes, int n, int h, int w, int r,
+                 unsigned m, int sh, void* stream) {
   cudaStream_t s = (cudaStream_t)stream;
-  return elem_bytes == 1
-             ? launch_ct_v_quant<uint8_t>(in, out, n, h, w, r, s)
-             : launch_ct_v_quant<uint16_t>(in, out, n, h, w, r, s);
+  return elem_bytes == 1 ? launch_ct_v_chip<uint8_t>(in, out, n, h, w, r, m, sh, s)
+                         : launch_ct_v_chip<uint16_t>(in, out, n, h, w, r, m, sh, s);
 }
 
 }  // extern "C"

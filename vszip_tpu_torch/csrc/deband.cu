@@ -4,10 +4,13 @@
 //                  the separable int modes 1, 3, 4, 5, 6: taps x[y±v, x]
 //                  (rows) and/or x[y, x±v] (columns) from one per-pixel
 //                  magnitude plane v
-//   m2_kernel      B6 deband_m2_center_pallas  (vszip_tpu/kernels/deband_m2_pallas.py)
+//   m2_tile_kernel B6 deband_m2_center_pallas  (vszip_tpu/kernels/deband_m2_pallas.py)
 //                  int mode 2: key = (val1+rmax)(2rmax+1) + (val2+rmax) gives
 //                  r1 = (y+val2, x+val1), r3 = (y-val2, x-val1),
-//                  r2 = (y-val1, x+val2), r4 = (y+val1, x-val2)
+//                  r2 = (y-val1, x+val2), r4 = (y+val1, x-val2), its taps
+//                  from a shared-memory frame tile (rmax <= 50)
+//   m2_kernel      the same with the taps loaded from device memory, for
+//                  ranges whose tiles do not fit a block (rmax > 50)
 // Each writes the mode's pre-grain centre (ops/deband.py _mode_center) as
 // int32; the grain and clamp tail runs outside, as in the JAX package.
 //
@@ -26,7 +29,10 @@
 // frames, so the offsets cost one read per call and the taps' addresses are
 // computed once.  Centre loads and stores are coalesced across a warp; taps
 // are read through the non-coherent path and lie within the offset range of
-// the pixel, so L1/L2 serve most of them.
+// the pixel, so L1/L2 serve most of them.  That held B6 at 2.5x its bound:
+// a frame's four gathers, up to 32 sectors a warp each, fill the load-store
+// pipe, and a warp waited about 1,570 cycles a frame at its store.
+// m2_tile_kernel stages each frame's tile once (see there).
 //
 // Mode 6 runs the VCL2 pow (ops/vcl.py pow_) in f32 with its order pinned:
 // the file is built with -fmad=false, so nvcc does not contract a*b+c into
@@ -41,10 +47,28 @@
 #include <math.h>
 #include <stdint.h>
 
+#include <mutex>
+#include <vector>
+
 namespace {
 
 constexpr int kTileX = 32;
 constexpr int kTileY = 8;
+// m2_tile: a block of kM2Threads threads owns kM2TileY x kM2TileX output
+// pixels (kM2Rows rows of 4 adjacent columns a thread, 16 lanes across a
+// tile's 64 columns) and holds, for two frames at a time, a tile of
+// (kM2TileY + 2 rmax) x (kM2TileX + 2 pad) positions, pad = rmax rounded up
+// to 8 columns so that rows stay on 16 bytes: the pair's 32-bit tile and
+// the next pair's two 16-bit tiles; the wrapper takes m2_kernel where they
+// pass kMaxSmemBytes (kernels/deband.py m2_on_chip holds the same numbers).
+constexpr int kM2TileX = 64;
+constexpr int kM2TileY = 64;
+constexpr int kM2Threads = 256;
+constexpr int kM2Rows = kM2TileY * kM2TileX / (4 * kM2Threads);
+static_assert(kM2TileX == 64 && kM2Rows * 4 * kM2Threads == kM2TileY * kM2TileX,
+              "16 lanes of 4 columns a row, whole rows a thread");
+constexpr int kM2Group = 4;  // pairs of frames an m2_tile item takes from one tile
+constexpr size_t kMaxSmemBytes = 232448;
 
 // A double constant rounded once to float, as NumPy's np.float32(v) does.
 #define F32(v) static_cast<float>(v)
@@ -272,6 +296,248 @@ __global__ void m2_kernel(const uint16_t* __restrict__ x, const int* __restrict_
   }
 }
 
+__device__ __forceinline__ void cp_async16(void* dst, const void* src) {
+  const unsigned d = (unsigned)__cvta_generic_to_shared(dst);
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(d), "l"(src));
+}
+
+__device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n" ::); }
+
+__device__ __forceinline__ void cp_async_wait_all() {
+  asm volatile("cp.async.wait_group 0;\n" ::: "memory");
+}
+
+// The positions of one m2_tile tile (rows, row length) and the block's
+// shared memory: a 32-bit pair tile and two 16-bit frame tiles.
+struct M2Tile {
+  int rows, stride;
+  __host__ __device__ M2Tile(int rmax)
+      : rows(kM2TileY + 2 * rmax), stride(kM2TileX + 2 * ((rmax + 7) / 8 * 8)) {}
+  __host__ __device__ int positions() const { return rows * stride; }
+  __host__ __device__ size_t bytes() const { return (size_t)positions() * 8; }
+};
+
+// A pixel's two tap offsets in its tile (o1 = v2*stride + v1 for r1 and
+// -o1 for r3; o2 = -v1*stride + v2 for r2 and -o2 for r4) as two int16, or
+// kFar where its key lies outside [0, (2rmax+1)^2), whose offsets pass the
+// tile's halo (|o| <= rmax*stride + rmax < 2^15 - 1 where the tiles fit).
+constexpr uint32_t kFar = 0x80008000u;
+
+// B6 from shared memory.  A persistent grid of G blocks walks the plane's
+// (group of kM2Group pairs of frames, tile) items, tiles inner, block b
+// taking items b, b + G, b + 2G, ... and each item's pairs in turn: at each
+// step the blocks hold neighbouring tiles of the same frames, so a tile's
+// halo is read from L2 by its neighbours (a block taking a contiguous range
+// of (tile, pair) items instead, its tile's keys decoded once, was 1.2x
+// slower), and the items split evenly over the blocks however few tiles
+// the plane has.  A block decodes each item's keys into registers (kFar or
+// the offsets above, 4 kM2Rows pixels a thread) for its pairs.  The tiles
+// hold the frames at plane-clamped coordinates, rows y0 - rmax .. y0 +
+// kM2TileY + rmax - 1 and columns x0 - pad .. x0 + kM2TileX + pad - 1: a
+// tap (y + dy, x + dx) with |dy|, |dx| <= rmax then reads, at the unclamped
+// tile index, the clamped coordinate's value, as _gather does.  The four
+// taps are random within +-rmax, so a warp's tap load meets bank conflicts
+// (about 3.5 wavefronts); the pair tile, frame f in the low and frame f+1
+// in the high half of each 32-bit position, gives both frames' tap in one
+// load.  The next pair's frames come in by 16-byte cp.async copies into the
+// 16-bit tiles while this pair computes (element loads at the plane's left
+// and right edges, or everywhere off 16 bytes), and are interleaved into
+// the pair tile between two block barriers.  A warp's 32 lanes cover 2 rows
+// x 64 columns, so the centres are 16-byte loads, and the keys and the
+// int32 outputs 16-byte loads and stores where the rows allow (vec4).  A
+// kFar pixel (not made by the op) reads its taps from device memory, as
+// m2_kernel does.  What bounds it is device-memory bytes, as m2_kernel; the
+// tiles' halo costs (94 x 96) / (64 x 64) = 2.2x the frames' bytes from L2
+// at rmax 15.
+template <bool BLUR_FIRST, bool kVec>
+__global__ void __launch_bounds__(kM2Threads, 3)
+    m2_tile_kernel(const uint16_t* __restrict__ x, const int* __restrict__ key,
+                   int* __restrict__ out, int n, int h, int w, int rmax, int thr, bool vec4) {
+  extern __shared__ uint4 m2_smem[];
+  const M2Tile tl(rmax);
+  uint32_t* tile = reinterpret_cast<uint32_t*>(m2_smem);
+  uint16_t* next0 = reinterpret_cast<uint16_t*>(tile + tl.positions());
+  uint16_t* next1 = next0 + tl.positions();
+  const int pad = (tl.stride - kM2TileX) / 2, chunks = tl.stride / 8;
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  // this thread's columns tx .. tx + 3 of rows ty0 + kRowStep * i
+  constexpr int kRowStep = kM2Threads / 16;
+  const int tx = 4 * (lane & 15), ty0 = 2 * warp + (lane >> 4);
+  const int tiles_x = (w + kM2TileX - 1) / kM2TileX, pairs = (n + 1) / 2;
+  const long long plane = (long long)h * w;
+  const int tiles = tiles_x * ((h + kM2TileY - 1) / kM2TileY);
+  const int groups = (pairs + kM2Group - 1) / kM2Group;
+  const long long total = (long long)tiles * groups;
+  const long long steps = (total - blockIdx.x + gridDim.x - 1) / gridDim.x * kM2Group;
+  if (steps <= 0) return;
+  // this block's step k: item blockIdx.x + (k / kM2Group) * gridDim.x, its
+  // tile and the first frame of its pair k % kM2Group (-1 past the last)
+  auto step = [&](long long k) {
+    const long long it = blockIdx.x + (k / kM2Group) * gridDim.x;
+    const int pr = (int)(it / tiles) * kM2Group + (int)(k % kM2Group);
+    return make_int2((int)(it % tiles), pr < pairs ? 2 * pr : -1);
+  };
+
+  // step k's two frames into next0 and next1 (the last frame twice where
+  // n is odd)
+  auto stage = [&](long long k) {
+    const int2 tf = step(k);
+    const int t = tf.x, f = tf.y;
+    if (f < 0) return;
+    const int y0 = (t / tiles_x) * kM2TileY, xa = (t % tiles_x) * kM2TileX - pad;
+    const uint16_t* s0 = x + f * plane;
+    const uint16_t* s1 = x + min(f + 1, n - 1) * plane;
+    for (int q = tid; q < tl.rows * chunks; q += kM2Threads) {
+      const int i = q / chunks, c = q - i * chunks, o = i * tl.stride + 8 * c;
+      const long long row = (long long)min(max(y0 - rmax + i, 0), h - 1) * w;
+      const int gx = xa + 8 * c;
+      if (kVec && gx >= 0 && gx + 8 <= w) {
+        cp_async16(next0 + o, s0 + row + gx);
+        cp_async16(next1 + o, s1 + row + gx);
+      } else {
+        uint32_t va[4], vb[4];
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const long long lo = row + min(max(gx + 2 * e, 0), w - 1);
+          const long long hi = row + min(max(gx + 2 * e + 1, 0), w - 1);
+          va[e] = (uint32_t)__ldg(s0 + lo) | (uint32_t)__ldg(s0 + hi) << 16;
+          vb[e] = (uint32_t)__ldg(s1 + lo) | (uint32_t)__ldg(s1 + hi) << 16;
+        }
+        *reinterpret_cast<uint4*>(next0 + o) = make_uint4(va[0], va[1], va[2], va[3]);
+        *reinterpret_cast<uint4*>(next1 + o) = make_uint4(vb[0], vb[1], vb[2], vb[3]);
+      }
+    }
+    cp_async_commit();
+  };
+  // the two frame tiles into the pair tile, position by position (frame f's
+  // sample | frame f+1's << 16)
+  auto interleave = [&]() {
+    for (int q = tid; q < tl.positions() / 8; q += kM2Threads) {
+      const uint4 a = reinterpret_cast<const uint4*>(next0)[q];
+      const uint4 b = reinterpret_cast<const uint4*>(next1)[q];
+      uint4* d = reinterpret_cast<uint4*>(tile) + 2 * q;
+      d[0] = make_uint4(__byte_perm(a.x, b.x, 0x5410), __byte_perm(a.x, b.x, 0x7632),
+                        __byte_perm(a.y, b.y, 0x5410), __byte_perm(a.y, b.y, 0x7632));
+      d[1] = make_uint4(__byte_perm(a.z, b.z, 0x5410), __byte_perm(a.z, b.z, 0x7632),
+                        __byte_perm(a.w, b.w, 0x5410), __byte_perm(a.w, b.w, 0x7632));
+    }
+  };
+
+  // k / na as (k * na_m) >> 20, exact for every k < na^2 while na^3 < 2^20
+  // (rmax <= 50: na <= 101)
+  const int na = 2 * rmax + 1, na_m = ((1 << 20) + na - 1) / na;
+  uint32_t off[4 * kM2Rows];
+  int cur = -1, y0 = 0, x0 = 0;
+  auto decode = [&](int t) {
+    y0 = (t / tiles_x) * kM2TileY;
+    x0 = (t % tiles_x) * kM2TileX;
+#pragma unroll
+    for (int i = 0; i < kM2Rows; ++i) {
+      const int y = y0 + ty0 + kRowStep * i;
+      const int* krow = key + (long long)y * w + x0 + tx;
+      int kq[4];
+      if (vec4 && y < h && x0 + tx < w) {
+        const int4 v = __ldg(reinterpret_cast<const int4*>(krow));
+        kq[0] = v.x, kq[1] = v.y, kq[2] = v.z, kq[3] = v.w;
+      } else {
+#pragma unroll
+        for (int k = 0; k < 4; ++k) kq[k] = y < h && x0 + tx + k < w ? __ldg(krow + k) : 0;
+      }
+#pragma unroll
+      for (int k = 0; k < 4; ++k) {
+        const int xx = x0 + tx + k;
+        uint32_t p = 0;  // outside the plane: taps at the centre, never stored
+        if (y < h && xx < w) {
+          const int kv = kq[k];
+          if ((unsigned)kv < (unsigned)(na * na)) {
+            const int q = (kv * na_m) >> 20, v1 = q - rmax, v2 = kv - q * na - rmax;
+            const int o1 = v2 * tl.stride + v1, o2 = v2 - v1 * tl.stride;
+            p = ((uint32_t)o1 & 0xffffu) | ((uint32_t)o2 << 16);
+          } else {
+            p = kFar;
+          }
+        }
+        off[4 * i + k] = p;
+      }
+    }
+  };
+  // a kFar pixel's centre in frame f, its taps from device memory
+  auto far = [&](int f, int c, int y, int xx) {
+    const uint16_t* src = x + f * plane;
+    const long long kv = __ldg(key + (long long)y * w + xx);
+    const long long q = floordiv(kv, na);
+    const long long v1 = q - rmax, v2 = (kv - q * na) - rmax;
+    return center<2, BLUR_FIRST>(c, __ldg(src + tap(y, xx, v2, v1, h, w)),
+                                 __ldg(src + tap(y, xx, -v2, -v1, h, w)),
+                                 __ldg(src + tap(y, xx, -v1, v2, h, w)),
+                                 __ldg(src + tap(y, xx, v1, -v2, h, w)), thr, 0, 0);
+  };
+
+  stage(0);
+  cp_async_wait_all();
+  __syncthreads();
+  interleave();
+  __syncthreads();
+  if (1 < steps) stage(1);
+  for (long long k = 0; k < steps; ++k) {
+    const int2 tf = step(k);
+    const int t = tf.x, f = tf.y;
+    const bool second = f + 1 < n;
+    if (t != cur) {
+      decode(t);
+      cur = t;
+    }
+#pragma unroll
+    for (int i = 0; i < kM2Rows; ++i) {
+      const int ty = ty0 + kRowStep * i, y = y0 + ty;
+      if (y >= h || f < 0) break;
+      const int ci = (ty + rmax) * tl.stride + pad + tx;
+      const uint4 cc = *reinterpret_cast<const uint4*>(tile + ci);
+      const uint32_t cv[4] = {cc.x, cc.y, cc.z, cc.w};
+      int r0[4], r1[4];
+#pragma unroll
+      for (int k = 0; k < 4; ++k) {
+        const uint32_t p = off[4 * i + k];
+        const int c0 = (int)(cv[k] & 0xffffu), c1 = (int)(cv[k] >> 16);
+        if (p != kFar) {
+          const int o1 = (int)(p << 16) >> 16, o2 = (int)p >> 16;
+          const uint32_t* c = tile + ci + k;
+          const uint32_t t1 = c[o1], t3 = c[-o1], t2 = c[o2], t4 = c[-o2];
+          r0[k] = center<2, BLUR_FIRST>(c0, (int)(t1 & 0xffffu), (int)(t3 & 0xffffu),
+                                        (int)(t2 & 0xffffu), (int)(t4 & 0xffffu), thr, 0, 0);
+          r1[k] = center<2, BLUR_FIRST>(c1, (int)(t1 >> 16), (int)(t3 >> 16), (int)(t2 >> 16),
+                                        (int)(t4 >> 16), thr, 0, 0);
+        } else {
+          r0[k] = far(f, c0, y, x0 + tx + k);
+          r1[k] = second ? far(f + 1, c1, y, x0 + tx + k) : 0;
+        }
+      }
+      int* o = out + f * plane + (long long)y * w + x0 + tx;
+#pragma unroll
+      for (int fr = 0; fr < 2; ++fr) {
+        const int* rv = fr ? r1 : r0;
+        if (fr == 1 && !second) break;
+        if (vec4 && x0 + tx < w) {
+          *reinterpret_cast<int4*>(o) = make_int4(rv[0], rv[1], rv[2], rv[3]);
+        } else {
+#pragma unroll
+          for (int k = 0; k < 4; ++k) {
+            if (x0 + tx + k < w) o[k] = rv[k];
+          }
+        }
+        o += plane;
+      }
+    }
+    if (k + 1 < steps) {
+      cp_async_wait_all();
+      __syncthreads();  // this pair's tile is read, the next pair's frames are in
+      interleave();
+      __syncthreads();  // the next pair's tile is in; the frame tiles are free
+      if (k + 2 < steps) stage(k + 2);
+    }
+  }
+}
+
 dim3 tile_grid(int h, int w) {
   return dim3((w + kTileX - 1) / kTileX, (h + kTileY - 1) / kTileY);
 }
@@ -286,6 +552,62 @@ void launch_center(const uint16_t* x, const int* vmap, int* out, int n, int h, i
   else
     center_kernel<MODE, false><<<tile_grid(h, w), block, 0, s>>>(x, vmap, out, n, h, w, thr,
                                                                  thr1, thr2);
+}
+
+// The blocks of `kernel` (kM2Threads threads, `bytes` of dynamic shared
+// memory) that stay resident on the current device, at least one per SM;
+// queried once per (device, kernel, bytes).  The kernel is allowed the most
+// dynamic shared memory a block may take.
+cudaError_t resident_blocks(const void* kernel, size_t bytes, long long* blocks) {
+  struct Seen {
+    int dev;
+    const void* kernel;
+    size_t bytes;
+    long long blocks;
+  };
+  static std::mutex mu;
+  static std::vector<Seen> seen;
+  int dev;
+  cudaError_t e = cudaGetDevice(&dev);
+  if (e != cudaSuccess) return e;
+  std::lock_guard<std::mutex> lock(mu);
+  for (const Seen& s : seen) {
+    if (s.dev == dev && s.kernel == kernel && s.bytes == bytes) {
+      *blocks = s.blocks;
+      return cudaSuccess;
+    }
+  }
+  int sms, per_sm;
+  e = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                           (int)kMaxSmemBytes);
+  if (e == cudaSuccess) e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (e == cudaSuccess) {
+    e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, kM2Threads, bytes);
+  }
+  if (e != cudaSuccess) return e;
+  *blocks = (long long)sms * (per_sm > 0 ? per_sm : 1);
+  seen.push_back({dev, kernel, bytes, *blocks});
+  return cudaSuccess;
+}
+
+template <bool BLUR_FIRST, bool kVec>
+int launch_m2_tile(const uint16_t* x, const int* key, int* out, int n, int h, int w, int rmax,
+                   int thr, cudaStream_t s) {
+  const M2Tile tl(rmax);
+  if (tl.bytes() > kMaxSmemBytes) return (int)cudaErrorInvalidValue;
+  const int groups = ((n + 1) / 2 + kM2Group - 1) / kM2Group;
+  const long long items =
+      (long long)((w + kM2TileX - 1) / kM2TileX) * ((h + kM2TileY - 1) / kM2TileY) * groups;
+  if (items == 0) return 0;
+  const void* kernel = reinterpret_cast<const void*>(m2_tile_kernel<BLUR_FIRST, kVec>);
+  long long blocks;
+  const cudaError_t e = resident_blocks(kernel, tl.bytes(), &blocks);
+  if (e != cudaSuccess) return (int)e;
+  if (blocks > items) blocks = items;
+  const bool vec4 = w % 4 == 0 && (uintptr_t)out % 16 == 0 && (uintptr_t)key % 16 == 0;
+  m2_tile_kernel<BLUR_FIRST, kVec><<<(unsigned)blocks, kM2Threads, tl.bytes(), s>>>(
+      x, key, out, n, h, w, rmax, thr, vec4);
+  return (int)cudaGetLastError();
 }
 
 }  // namespace
@@ -324,6 +646,22 @@ int vz_deband_m2_center(const void* x, const void* key, void* out, int n, int h,
     m2_kernel<false><<<tile_grid(h, w), block, 0, s>>>(
         (const uint16_t*)x, (const int*)key, (int*)out, n, h, w, rmax, thr);
   return (int)cudaGetLastError();
+}
+
+// B6 from shared-memory tiles (M2Tile(rmax).bytes() <= kMaxSmemBytes).
+int vz_deband_m2_tile(const void* x, const void* key, void* out, int n, int h, int w, int rmax,
+                      int blur_first, int thr, void* stream) {
+  const uint16_t* xs = (const uint16_t*)x;
+  const int* ks = (const int*)key;
+  int* os = (int*)out;
+  cudaStream_t s = (cudaStream_t)stream;
+  const bool vec = (uintptr_t)x % 16 == 0 && w % 8 == 0;
+  if (blur_first) {
+    return vec ? launch_m2_tile<true, true>(xs, ks, os, n, h, w, rmax, thr, s)
+               : launch_m2_tile<true, false>(xs, ks, os, n, h, w, rmax, thr, s);
+  }
+  return vec ? launch_m2_tile<false, true>(xs, ks, os, n, h, w, rmax, thr, s)
+             : launch_m2_tile<false, false>(xs, ks, os, n, h, w, rmax, thr, s);
 }
 
 }  // extern "C"

@@ -12,7 +12,7 @@ tensor's device, the per-tensor analogue of the JAX package's ``_on_tpu()``:
 =====================  ==============================================  ==========
 wrapper                replaces (vszip_tpu/kernels/boxblur_pallas.py)   CUDA kernel
 =====================  ==============================================  ==========
-``ct_blur_int``        ``ct_blur_int_pallas`` (:279)                   ct_v_quant, h_fixed
+``ct_blur_int``        ``ct_blur_int_pallas`` (:279)                   ct_v_chip, h_fixed
 ``rt_blur_h``          ``rt_blur_h_pallas`` (:670)                     h_fixed
 ``rt_blur_v_multi``    ``rt_blur_v_multi_pallas`` (:580)               v_chip (v_fixed)
 ``rt_blur_v``          ``rt_blur_v_pallas`` (:432)                     v_chip (v_fixed)
@@ -36,9 +36,14 @@ puts one mirror-padded row per block in shared memory, cuts it into
 segments of 8 samples, one per thread (segment sums, one block scan,
 sliding sums along each segment), and runs all passes there (a row too long
 for shared memory uses a global scratch buffer that the wrapper allocates,
-with the same arithmetic), and ``ct_v_quant`` is ``v_fixed``'s walk with
-the comptime mirror and quantiser.  B1 runs as two launches; fusing those is
-later work.
+with the same arithmetic).  ``ct_v_chip`` is ``v_chip``'s one-pass case
+with the comptime (hybrid) mirror, under which every row's window slides
+from the one before, and the quantiser ``(2*col + k) // (2k)`` as a
+multiply-high by the per-call (m, s) of ``quantizer``.  Its ring holds
+2r + 1 + ``V_CHIP_AHEAD_ROWS`` rows, ``v_chip``'s one-pass ring
+(``v_fixed_on_chip(r, 1)``: r <= 897); ``ct_blur_int`` raises past that,
+which the op's comptime path (r <= 22) never reaches.  B1 runs as two
+launches; fusing those is later work.
 """
 
 from __future__ import annotations
@@ -76,6 +81,19 @@ def v_fixed_on_chip(radius: int, passes: int) -> bool:
     the wrapper takes the column walk ``v_fixed``."""
     rows = passes * (2 * radius + 1) + V_CHIP_AHEAD_ROWS
     return passes <= V_CHIP_PASSES and rows * V_CHIP_ROW_BYTES <= MAX_SMEM_BYTES
+
+
+def quantizer(radius: int) -> tuple[int, int]:
+    """(m, s) with ``(n * m) >> s == n // (2k)``, k = 2r + 1, for every
+    numerator n = 2*col + k of a uint16 (or uint8) plane's column sum, n <=
+    N_max = k * 131071: s is the least with 2^s > N_max * (2k - 1) and m =
+    ceil(2^s / 2k).  Exact because n * (m * 2k - 2^s) <= N_max * (2k - 1) <
+    2^s; m < 2 N_max + 1 < 2^29 and n < 2^28 for r <= 897, so the product is
+    one 32x32->64 multiply (``ct_v_chip``)."""
+    k = 2 * radius + 1
+    d = 2 * k
+    s = (k * 131071 * (d - 1)).bit_length()
+    return -(-(1 << s) // d), s
 
 
 # ---------------------------------------------------------------------------
@@ -165,14 +183,18 @@ def _hybrid_window_sums(x: torch.Tensor, radius: int) -> torch.Tensor:
     return torch.cat([top, interior, bot], dim=1)
 
 
-def ct_blur_int_ref(x: torch.Tensor, radius: int) -> torch.Tensor:
-    """Comptime integer BoxBlur (plain version of ``ct_blur_int``): raw
-    vertical sums quantised as ``(2*col + k) // (2k)``, then one runtime
-    horizontal pass."""
+def ct_v_ref(x: torch.Tensor, radius: int) -> torch.Tensor:
+    """B1's vertical stage (plain version of ``ct_v_chip``): raw vertical
+    sums under the comptime mirror quantised as ``(2*col + k) // (2k)``."""
     ksize = 2 * radius + 1
     col = _hybrid_window_sums(x, radius)
-    tmp = ((2 * col + ksize) // (2 * ksize)).to(x.dtype)
-    return h_fixed_ref(tmp, radius)
+    return ((2 * col + ksize) // (2 * ksize)).to(x.dtype)
+
+
+def ct_blur_int_ref(x: torch.Tensor, radius: int) -> torch.Tensor:
+    """Comptime integer BoxBlur (plain version of ``ct_blur_int``): the
+    vertical stage ``ct_v_ref``, then one runtime horizontal pass."""
+    return h_fixed_ref(ct_v_ref(x, radius), radius)
 
 
 # ---------------------------------------------------------------------------
@@ -188,8 +210,8 @@ def _lib() -> ctypes.CDLL:
     lib.vz_h_fixed.argtypes = [p, p, p, i, ll, i, i, i, p]
     lib.vz_h_fixed_scratch_words.argtypes = [ll, i, i]
     lib.vz_h_fixed_scratch_words.restype = ll
-    lib.vz_ct_v_quant.argtypes = [p, p, i, i, i, i, i, p]
-    for fn in (lib.vz_v_fixed, lib.vz_v_chip, lib.vz_h_fixed, lib.vz_ct_v_quant):
+    lib.vz_ct_v_chip.argtypes = [p, p, i, i, i, i, i, ctypes.c_uint, i, p]
+    for fn in (lib.vz_v_fixed, lib.vz_v_chip, lib.vz_h_fixed, lib.vz_ct_v_chip):
         fn.restype = ctypes.c_int
     return lib
 
@@ -228,6 +250,16 @@ def _v_fixed(x: torch.Tensor, radius: int, passes: int) -> torch.Tensor:
     return out
 
 
+def _ct_v(x: torch.Tensor, radius: int) -> torch.Tensor:
+    """B1's vertical stage: the quantised column sums (``ct_v_chip``)."""
+    n, h, w = x.shape
+    out = torch.empty_like(x)
+    with torch.cuda.device(x.device):
+        _build.check(_lib().vz_ct_v_chip, x.data_ptr(), out.data_ptr(), x.element_size(),
+                     n, h, w, radius, *quantizer(radius), _build.stream(x))
+    return out
+
+
 def _h_fixed(x: torch.Tensor, radius: int, passes: int) -> torch.Tensor:
     n, h, w = x.shape
     out = torch.empty_like(x)
@@ -245,16 +277,14 @@ def _h_fixed(x: torch.Tensor, radius: int, passes: int) -> torch.Tensor:
 # ---------------------------------------------------------------------------
 
 def ct_blur_int(x: torch.Tensor, radius: int) -> torch.Tensor:
-    """Comptime integer BoxBlur, one pass each axis (B1)."""
+    """Comptime integer BoxBlur, one pass each axis (B1), r <= 897 (the
+    ring of ``ct_v_chip``, on either device)."""
+    if not v_fixed_on_chip(radius, 1):
+        raise ValueError(f"vszip_tpu_torch: ct_blur_int takes radius <= 897, got {radius}")
     if x.device.type == "cpu":
         return ct_blur_int_ref(x, radius)
     _check(x, radius, (1,))
-    n, h, w = x.shape
-    tmp = torch.empty_like(x)
-    with torch.cuda.device(x.device):
-        _build.check(_lib().vz_ct_v_quant, x.data_ptr(), tmp.data_ptr(),
-                     x.element_size(), n, h, w, radius, _build.stream(x))
-    out = _h_fixed(tmp, radius, 1)
+    out = _h_fixed(_ct_v(x, radius), radius, 1)
     LAUNCHES["ct_blur_int"] += 1
     return out
 

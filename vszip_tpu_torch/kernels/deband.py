@@ -15,8 +15,8 @@ wrapper               replaces                                     CUDA kernel
 ====================  ===========================================  ==============
 ``deband_center``     ``deband_center_pallas``                     center_kernel
                       (vszip_tpu/kernels/deband_pallas.py:85)
-``deband_m2_center``  ``deband_m2_center_pallas``                  m2_kernel
-                      (vszip_tpu/kernels/deband_m2_pallas.py:119)
+``deband_m2_center``  ``deband_m2_center_pallas``                  m2_tile_kernel
+                      (vszip_tpu/kernels/deband_m2_pallas.py:119)  (m2_kernel)
 ====================  ===========================================  ==============
 
 Both compute the same function as their TPU kernel, with the same
@@ -29,7 +29,11 @@ package takes the row magnitude for the column taps there too.  The TPU
 kernels' limits (``rmax <= 16``, ``w >= 128``, 64-row bands with 16-row
 halos, the select chains over the offset alphabet, u32 frame pairing) are
 TPU workarounds and are not carried over: on Hopper a tap is an indexed
-load.
+load.  ``m2_tile_kernel`` stages a 64x64 tile with its halo of rmax rows and
+columns in shared memory, at plane-clamped coordinates, two frames to a
+32-bit position, and reads the four taps there; past the range whose tiles
+fit a block's shared memory (``m2_on_chip``: rmax > 50) the wrapper takes
+``m2_kernel``, whose taps are loads from device memory.
 """
 
 from __future__ import annotations
@@ -51,6 +55,29 @@ SEPARABLE_MODES = (1, 3, 4, 5, 6)
 def reset_launches() -> None:
     for k in LAUNCHES:
         LAUNCHES[k] = 0
+
+
+# ``m2_tile`` (csrc/deband.cu) holds a tile of (M2_TILE_Y + 2 rmax) x
+# (M2_TILE_X + 2 pad) positions, pad = rmax rounded up to 8 columns, for two
+# frames at a time, 8 bytes a position (the pair's 32-bit tile and the next
+# pair's two 16-bit tiles), at most MAX_SMEM_BYTES a block (the kernel's
+# kM2TileY, kM2TileX, M2Tile and kMaxSmemBytes).
+M2_TILE_Y = 64
+M2_TILE_X = 64
+MAX_SMEM_BYTES = 232448
+
+
+def m2_tile_shape(rmax: int) -> tuple[int, int]:
+    """(rows, columns) of the tiles ``m2_tile`` stages at `rmax`."""
+    return M2_TILE_Y + 2 * rmax, M2_TILE_X + 2 * (-(-rmax // 8) * 8)
+
+
+def m2_on_chip(rmax: int) -> bool:
+    """Whether ``m2_tile`` takes B6 at `rmax` (its tiles fit a block's
+    shared memory: rmax <= 50); else the wrapper takes ``m2_kernel``, whose
+    taps are loads from device memory."""
+    rows, cols = m2_tile_shape(rmax)
+    return rows * cols * 8 <= MAX_SMEM_BYTES
 
 
 # ---------------------------------------------------------------------------
@@ -130,7 +157,8 @@ def _lib() -> ctypes.CDLL:
     p, i = ctypes.c_void_p, ctypes.c_int
     lib.vz_deband_center.argtypes = [p, p, p, i, i, i, i, i, i, i, i, p]
     lib.vz_deband_m2_center.argtypes = [p, p, p, i, i, i, i, i, i, p]
-    for fn in (lib.vz_deband_center, lib.vz_deband_m2_center):
+    lib.vz_deband_m2_tile.argtypes = [p, p, p, i, i, i, i, i, i, p]
+    for fn in (lib.vz_deband_center, lib.vz_deband_m2_center, lib.vz_deband_m2_tile):
         fn.restype = ctypes.c_int
     return lib
 
@@ -183,9 +211,9 @@ def deband_m2_center(x: torch.Tensor, key: torch.Tensor, blur_first: bool,
     _check(x, key, rmax)
     n, h, w = x.shape
     out = torch.empty(x.shape, dtype=torch.int32, device=x.device)
+    fn = _lib().vz_deband_m2_tile if m2_on_chip(rmax) else _lib().vz_deband_m2_center
     with torch.cuda.device(x.device):
-        _build.check(_lib().vz_deband_m2_center, x.data_ptr(), key.data_ptr(),
-                     out.data_ptr(), n, h, w, rmax, int(blur_first), int(thr),
-                     _build.stream(x))
+        _build.check(fn, x.data_ptr(), key.data_ptr(), out.data_ptr(), n, h, w, rmax,
+                     int(blur_first), int(thr), _build.stream(x))
     LAUNCHES["deband_m2_center"] += 1
     return out
