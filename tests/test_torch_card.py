@@ -424,12 +424,32 @@ def _clahe_inputs(shape, tiles_x, tiles_y, device, seed=0):
             torch.from_numpy(xa).to(device), tile_h, tile_w)
 
 
+# B7 gives a thread 16 bytes of a row (8-, 4- or 1-byte accesses where the
+# width or a plane's address is off 16 bytes: chunk_vector), bx threads a row
+# up to 512 (wider rows: several chunks a thread) and stages the table in
+# shared memory up to 96 KB (table_on_chip), else reads it from device
+# memory.  Widths on and off 16 (1920, 960, 1000, 300, 77, 13, 9000), tiles
+# under 16 columns (200x300 in 60x40 tiles: 7x5; 1080p in 16x16: 120x67),
+# tables past shared memory (those two), and one frame or three
 @pytest.mark.parametrize("shape,tiles", [((2, 1080, 1920), (3, 3)), ((2, 540, 960), (8, 8)),
                                          ((3, 33, 77), (1, 1)), ((1, 7, 13), (4, 2)),
-                                         ((1, 200, 300), (60, 40))], ids=str)
+                                         ((1, 200, 300), (60, 40)), ((2, 1080, 1920), (16, 16)),
+                                         ((3, 70, 1000), (5, 7)), ((1, 20, 9000), (3, 2)),
+                                         ((2, 31, 16), (1, 1))], ids=str)
 def test_clahe_kernel_matches_plain(cuda, shape, tiles):
     args = _clahe_inputs(shape, *tiles, cuda)
-    assert torch.equal(kc.clahe8_lookup(*args), kc.clahe8_lookup_ref(*args))
+    assert _same(kc.clahe8_lookup(*args), kc.clahe8_lookup_ref(*args))
+
+
+@pytest.mark.parametrize("offset", [1, 4, 8], ids=str)
+def test_clahe_kernel_takes_planes_off_16_bytes(cuda, offset):
+    # a plane that starts `offset` bytes past 16: narrower accesses
+    x, tab, ya, xa, th, tw = _clahe_inputs((2, 90, 320), 4, 3, cuda)
+    off = torch.empty(x.numel() + offset, dtype=torch.uint8, device=cuda)[offset:].view(x.shape)
+    off.copy_(x)
+    assert kc.chunk_vector(320, off.data_ptr(), 0) == offset
+    assert _same(kc.clahe8_lookup(off, tab, ya, xa, th, tw), kc.clahe8_lookup_ref(x, tab, ya, xa,
+                                                                                  th, tw))
 
 
 @pytest.mark.parametrize("fmt,args", [("GRAY8", {}), ("YUV420P8", {"tiles": [4, 2], "limit": 40}),
@@ -658,19 +678,63 @@ def test_eedi3_wrappers_reject_what_kernels_do_not_take(cuda):
 # XPSNR (B11, B12) and SSIMULACRA2 (B13)
 # ---------------------------------------------------------------------------
 
-@pytest.mark.parametrize("dtype,peak", [(torch.uint16, 1024), (torch.uint8, 256)], ids=str)
-@pytest.mark.parametrize("shape", [(3, 150, 256), (4, 1080, 1920), (2, 70, 131), (1, 3, 5)],
+# B11 gives a warp each 64x64 block and a lane two columns, one load of both
+# where W is even and the planes are on their pair's bytes (pair_loads), else
+# one load a column.  uint16 at 10 bits and at the full range, uint8; H and
+# W on and off 64, odd W, 1-3 frames (missing previous frames), planes with
+# no interior
+@pytest.mark.parametrize("dtype,peak", [(torch.uint16, 1024), (torch.uint16, 65536),
+                                        (torch.uint8, 256)], ids=str)
+@pytest.mark.parametrize("shape", [(3, 150, 256), (4, 1080, 1920), (2, 70, 131), (1, 3, 5),
+                                   (2, 131, 66), (3, 2, 2), (1, 64, 64), (2, 65, 130)],
                          ids=str)
 def test_xpsnr_kernels_match_plain(cuda, shape, dtype, peak):
     g = torch.Generator(device=cuda).manual_seed(shape[1])
     org, rec = (torch.randint(0, peak, shape, generator=g, device=cuda, dtype=torch.int32)
                 .to(dtype) for _ in range(2))
-    for order, temporal in ((1, True), (2, True), (1, False)):
+    for order, temporal in ((1, True), (2, True), (1, False), (2, False)):
         for k, r in zip(kx.luma_stats(org, rec, order, temporal),
                         kx.luma_stats_ref(org, rec, order, temporal)):
             assert k.dtype == torch.float64 and _same(k, r)
     for by, bx in ((32, 32), (64, 32), (8, 16), (3, 7)):
         assert _same(kx.chroma_sse(org, rec, by, bx), kx.chroma_sse_ref(org, rec, by, bx))
+
+
+def _extreme_planes(shape, peak, device):
+    """The largest block sums B11's accumulators meet: org at peak - 1 on
+    even rows and columns, 0 elsewhere (|Laplacian| 12 (peak - 1) there),
+    and its inverse on odd frames (|org - 2 p1 + p2| 2 (peak - 1)); rec the
+    inverse of org ((org - rec)^2 = (peak - 1)^2)."""
+    n, h, w = shape
+    dots = ((torch.arange(h, device=device) % 2 == 0).view(h, 1)
+            & (torch.arange(w, device=device) % 2 == 0).view(1, w))
+    odd = (torch.arange(n, device=device) % 2 == 1).view(n, 1, 1)
+    org = torch.where(dots ^ odd, peak - 1, 0).to(torch.int32)
+    return org, peak - 1 - org
+
+
+@pytest.mark.parametrize("dtype,peak", [(torch.uint16, 65536), (torch.uint8, 256)], ids=str)
+@pytest.mark.parametrize("shape", [(3, 128, 192), (3, 1080, 1920), (2, 67, 131)], ids=str)
+def test_xpsnr_luma_kernel_at_its_accumulators_bounds(cuda, shape, dtype, peak):
+    org, rec = (t.to(dtype) for t in _extreme_planes(shape, peak, cuda))
+    for order in (1, 2):
+        for k, r in zip(kx.luma_stats(org, rec, order, True),
+                        kx.luma_stats_ref(org, rec, order, True)):
+            assert _same(k, r)
+
+
+def test_xpsnr_luma_kernel_takes_planes_off_their_pairs(cuda):
+    # planes one element past their pair's alignment: one load a column
+    org, rec = (_rand((2, 70, 130), torch.uint16, cuda, seed) for seed in (1, 2))
+    base = torch.empty(org.numel() + 1, dtype=torch.uint16, device=cuda)
+    off = base[1:].view(org.shape)
+    off.copy_(org)
+    assert not kx.pair_loads(130, 2, off.data_ptr(), rec.data_ptr())
+    assert kx.pair_loads(130, 2, org.data_ptr(), rec.data_ptr())
+    for order, temporal in ((1, True), (2, True)):
+        for k, r in zip(kx.luma_stats(off, rec, order, temporal),
+                        kx.luma_stats_ref(org, rec, order, temporal)):
+            assert _same(k, r)
 
 
 def _ssim_inputs(shape, device):

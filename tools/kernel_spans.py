@@ -79,8 +79,21 @@ exports the query, and ptxas' registers of the package's build:
   next frame's loads, in the block's pipeline and in the store, the
   thread's life per frame, and the share of IDCT rows, and of warps, that
   take the DC-only path;
+- ``clahe8`` (B7, ``clahe8_chunk_kernel``) on the launch of ``clahe(c)`` on
+  64 frames of 1080p GRAY8 noise (3x3 tiles): thread 0's cycles per row of
+  its 16-byte chunk in staging frames' tables and their barriers, in
+  filling the chunk's column table, in waiting for the row's chunk (loaded a
+  row ahead) and in the 16 pixels' lookups, blends and packing, and the
+  block's life; with the table loads' bank wavefronts a warp, counted from
+  the data's bytes for the kernel's lanes (``bank_wavefronts``);
+- ``luma_stats`` (B11, ``luma_warp_kernel``) on the luma of 32 frames of
+  1080p 10-bit noise, order 1 (the row's), order 2 and temporal off: lane
+  0's cycles per row step of each warp in waiting for the step's loads and
+  unpacking and shuffling them, in shifting the loads in flight and issuing
+  the next, in sse, the Laplacian and the temporal term, the block
+  reduction, the prologue and the warp's life;
 
-For B18, B15, B3/B4, B1's vertical stage, B6, B16, B13 and B14 it also
+For B18, B15, B3/B4, B1's vertical stage, B6, B16, B13, B14, B7 and B11 it also
 prints the instruction mix of each instantiation and of each of its loops
 (``cuobjdump -sass`` of the
 package's build), with the counts by class (f32, integer and address,
@@ -107,11 +120,13 @@ from vszip_tpu_torch import _build  # noqa: E402
 from vszip_tpu_torch.kernels import bilateral_dither as kbd  # noqa: E402
 from vszip_tpu_torch.kernels import boxblur as kb  # noqa: E402
 from vszip_tpu_torch.kernels import checkmate as kk  # noqa: E402
+from vszip_tpu_torch.kernels import clahe as kc  # noqa: E402
 from vszip_tpu_torch.kernels import comb_mask as km  # noqa: E402
 from vszip_tpu_torch.kernels import compress as kz  # noqa: E402
 from vszip_tpu_torch.kernels import deband as kd  # noqa: E402
 from vszip_tpu_torch.kernels import eedi3 as ke  # noqa: E402
 from vszip_tpu_torch.kernels import ssim as kss  # noqa: E402
+from vszip_tpu_torch.kernels import xpsnr as kx  # noqa: E402
 from vszip_tpu_torch.ops.eedi3 import _pad_rows  # noqa: E402
 
 OUT = ROOT / "build" / "kernel_spans"
@@ -425,6 +440,79 @@ extern "C" int vz_probe_occupancy(int ssim, int err, int cols, int* blocks, int*
   return cols == 2 ? probe_occupancy<2>(ssim, err, blocks) : probe_occupancy<1>(ssim, err, blocks);
 }
 """),
+    "clahe8": ("clahe", kc, (
+        "table staging and its barriers", "the chunk's column table",
+        "wait for the row's chunk (loaded a row ahead)", "16 pixels: lookups, blend, pack",
+        "the block's life"), (
+        ("  extern __shared__ int32_t stab[];\n", "",
+         "  long long cs_stage = 0, cs_cols = 0, cs_wait = 0, cs_pix = 0, cs_n = 0;\n"
+         "  uint32_t cs_dep = 0;\n  const long long cs_start = clock64();\n"),
+        ("    if (kSmem) {\n      __syncthreads();  // every thread is done with the previous frame's "
+         "table\n", "    const long long cs0 = clock64();\n", ""),
+        ("    for (int cc = tx; cc < chunks; cc += bx) {\n", "    cs_stage += clock64() - cs0;\n", ""),
+        ("      const int c0 = cc * kChunk, valid = w - c0;\n", "",
+         "      const long long cs_c0 = clock64();\n"),
+        ("      int y = ys + ty;\n",
+         "#pragma unroll\n      for (int j = 0; j < kChunk; ++j) cs_dep ^= (uint32_t)col[j] ^ "
+         "__float_as_uint(ofx[j]);\n      cs_cols += clock64() - cs_c0;\n", ""),
+        ("        const float fy = __ldg(ya + py);\n",
+         "        const long long cs2 = clock64();\n        cs_dep ^= cur[0] ^ cur[1] ^ cur[2] ^ "
+         "cur[3];\n        const long long cs3 = clock64();\n", ""),
+        ("        store_chunk<kVec>(dst, o, valid);\n",
+         "        cs_dep ^= o[0] ^ o[3];\n        const long long cs4 = clock64();\n"
+         "        cs_wait += cs3 - cs2;\n        cs_pix += cs4 - cs3;\n        ++cs_n;\n", ""),
+        ("        for (int i = 0; i < 4; ++i) cur[i] = nxt[i];\n      }\n    }\n  }\n", "",
+         f"  {_add(0, 'cs_stage')} {_add(1, 'cs_cols')} {_add(2, 'cs_wait')} {_add(3, 'cs_pix')}\n"
+         f"  {_add(4, 'clock64() - cs_start')} {_add(10, 'cs_dep == 0x1234567u')} "
+         f"{_add(SLOTS - 1, 'cs_n')}\n")), """
+extern "C" int vz_probe_occupancy(int nthreads, int smem, int vec, int* blocks, int* threads) {
+  *threads = nthreads;
+  const void* k = smem ? (const void*)clahe8_chunk_kernel<true, 16>
+                       : (const void*)clahe8_chunk_kernel<false, 16>;
+  cudaError_t e = cudaFuncSetAttribute(k, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                       kSmemTableBytes);
+  if (e != cudaSuccess) return (int)e;
+  return (int)cudaOccupancyMaxActiveBlocksPerMultiprocessor(blocks, k, *threads,
+                                                            smem ? 16 * 1024 : 0);
+}
+"""),
+    "luma_stats": ("xpsnr", kx, (
+        "prologue: the first rows' loads", "wait for this step's loads, unpack and shuffle",
+        "shift the loads in flight, issue the next", "sse, Laplacian, temporal term",
+        "block reduction and store", "the warp's life"), (
+        ("  const int lane = threadIdx.x & 31;\n", "",
+         "  long long ls_wait = 0, ls_issue = 0, ls_comp = 0, ls_red = 0, ls_n = 0;\n"
+         "  uint32_t ls_dep = 0;\n  const long long ls_start = clock64();\n"),
+        ("  for (int b = by0; b < by1; ++b) {\n", "  const long long ls_pro = clock64() - ls_start;\n",
+         ""),
+        ("    for (int y = b * kLumaBlock; y < ye; ++y) {\n", "",
+         "      const long long ls0 = clock64();\n"),
+        ("      // ... and issue step y+kAhead's loads\n",
+         "      ls_dep ^= (uint32_t)(dn.va ^ dn.hb ^ ra ^ rb ^ qa ^ qb);\n"
+         "      const long long ls1 = clock64();\n", ""),
+        ("      const int da = mid.ca - ra, db = mid.cb - rb;\n",
+         "      const long long ls2 = clock64();\n", ""),
+        ("      vup_a = mid.va;\n",
+         "      ls_dep ^= (uint32_t)sse ^ sa ^ ta;\n      const long long ls3 = clock64();\n"
+         "      ls_wait += ls1 - ls0;\n      ls_issue += ls2 - ls1;\n      ls_comp += ls3 - ls2;\n"
+         "      ++ls_n;\n", ""),
+        ("    const unsigned long long t0 = warp_total(sse);\n",
+         "    const long long ls4 = clock64();\n", ""),
+        ("      out[2 * stride + blk] = t2;\n    }\n", "", "    ls_red += clock64() - ls4;\n"),
+        ("}\n\ntemplate <typename T, bool kPair>\nint launch_luma(",
+         f"  {_add(0, 'ls_pro', LANE0)} {_add(1, 'ls_wait', LANE0)} {_add(2, 'ls_issue', LANE0)}\n"
+         f"  {_add(3, 'ls_comp', LANE0)} {_add(4, 'ls_red', LANE0)} "
+         f"{_add(5, 'clock64() - ls_start', LANE0)}\n"
+         f"  {_add(10, 'ls_dep == 0x1234567u', LANE0)} {_add(SLOTS - 1, 'ls_n', LANE0)}\n", "")), """
+extern "C" int vz_probe_occupancy(int pair, int u16, int order, int* blocks, int* threads) {
+  *threads = 32 * kLumaWarps;
+  const void* k = u16 ? (pair ? (const void*)luma_warp_kernel<uint16_t, true, 1>
+                              : (const void*)luma_warp_kernel<uint16_t, false, 1>)
+                      : (pair ? (const void*)luma_warp_kernel<uint8_t, true, 1>
+                              : (const void*)luma_warp_kernel<uint8_t, false, 1>);
+  return (int)cudaOccupancyMaxActiveBlocksPerMultiprocessor(blocks, k, *threads, 0);
+}
+"""),
     "compress": ("compress", kz, (
         "issue the next frame's 8 loads", "the block's pipeline (unpack, 4 passes, pack)",
         "store", "the thread's life, per frame"), (
@@ -552,11 +640,20 @@ def device_ms(call, iters: int = 5) -> float:
     return us / 1e3 / iters
 
 
+def _bits(t: torch.Tensor) -> torch.Tensor:
+    """`t` as integers holding its bit pattern: floats by their IEEE bits (so
+    -0.0 is not +0.0, and a NaN equals itself), integers widened."""
+    if t.is_floating_point():
+        return t.view({2: torch.int16, 4: torch.int32, 8: torch.int64}[t.element_size()])
+    return t.to(torch.int64)
+
+
 def _same(a, b) -> bool:
+    """Equal dtypes, shapes and bit patterns, as chip_smoke.py compares."""
     a, b = (a if isinstance(a, tuple) else (a,)), (b if isinstance(b, tuple) else (b,))
-    return all(torch.equal(x.to(torch.int64) if not x.is_floating_point() else x,
-                           y.to(torch.int64) if not y.is_floating_point() else y)
-               for x, y in zip(a, b))
+    return len(a) == len(b) and all(
+        x.dtype == y.dtype and x.shape == y.shape and torch.equal(_bits(x), _bits(y))
+        for x, y in zip(a, b))
 
 
 def measure(kernel: str, probe: ctypes.CDLL, label: str, call, occ=None) -> None:
@@ -693,6 +790,17 @@ def ct_v_quant(probe, g, dev) -> None:
                 "per step)", lambda: kb._ct_v(x, 13), (13, 0, 0))
 
 
+def recorded(module, name: str, run) -> list:
+    """The arguments of every call of ``module.name`` that ``run()`` makes."""
+    calls, fn = [], getattr(module, name)
+    setattr(module, name, lambda *a: calls.append(a) or fn(*a))
+    try:
+        run()
+    finally:
+        setattr(module, name, fn)
+    return calls
+
+
 def m2_calls(g, dev):
     """The arguments of the 3 B6 launches of ``deband(c)`` on 64 frames of
     1080p YUV420P16 (chip_smoke.py's ``deband_m2`` row), one per plane."""
@@ -702,13 +810,7 @@ def m2_calls(g, dev):
                             dtype=torch.int32).to(torch.uint16)
               for h, w in ((1080, 1920), (540, 960), (540, 960))]
     clip = vt.Clip.from_planes(planes, vt.get_format("YUV420P16"), device=dev)
-    calls, fn = [], kd.deband_m2_center
-    kd.deband_m2_center = lambda *a: calls.append(a) or fn(*a)
-    try:
-        vt.deband(clip)
-    finally:
-        kd.deband_m2_center = fn
-    return calls
+    return recorded(kd, "deband_m2_center", lambda: vt.deband(clip))
 
 
 def m2(probe, g, dev) -> None:
@@ -755,12 +857,7 @@ def ssim_calls(c1, c2):
     import vszip_tpu_torch as vt
 
     oss = importlib.import_module("vszip_tpu_torch.ops.ssimulacra2")
-    calls, fn = [], kss.ssim_sums
-    kss.ssim_sums = lambda *a: calls.append(a) or fn(*a)
-    try:
-        vt.ssimulacra2(c1, c2)
-    finally:
-        kss.ssim_sums = fn
+    calls = recorded(kss, "ssim_sums", lambda: vt.ssimulacra2(c1, c2))
     kept = [(scale, plane) for scale in range(6) for plane in range(3)
             if not all(oss._skip(plane, scale).values())]
     return [(sp, a) for sp, a in zip(kept, calls) if min(a[0].shape[1:]) >= oss.MIN_KERNEL_SIDE]
@@ -817,6 +914,99 @@ def ssim(probe, g, dev) -> None:
                   for c in (2, 1)), flush=True)
 
 
+def bank_wavefronts(keys: torch.Tensor) -> torch.Tensor:
+    """Shared-memory wavefronts of warp-loads of 4-byte words at the word
+    indices `keys` (..., 32), a lane that takes no part holding the index of
+    one that does: the most distinct words that any one bank holds."""
+    k, _ = keys.sort(-1)
+    first = torch.ones_like(k, dtype=torch.int32)
+    first[..., 1:] = (k[..., 1:] != k[..., :-1]).to(torch.int32)
+    cnt = torch.zeros(k.shape[:-1] + (32,), dtype=torch.int32, device=k.device)
+    cnt.scatter_add_(-1, k & 31, first)
+    return cnt.amax(-1)
+
+
+def clahe_lanes(w: int, layout):
+    """The (row within a band, column) of each lane of each table warp-load
+    of one band of rows, each (loads, 32), -1 where a lane takes no part,
+    and the band's rows, for ``clahe8_chunk_kernel``'s `layout` (bx, by,
+    chunk): bx threads a row of `by` rows, each on `chunk` consecutive
+    bytes, warp-load j reading byte j of every lane's chunk."""
+    bx, by, chunk = layout
+    tid = torch.arange(-(-bx * by // 32) * 32)
+    tx, ty = tid % bx, tid // bx
+    rows, cols = [], []
+    for j in range(chunk):
+        c = chunk * tx + j
+        on = (tid < bx * by) & (c < w)
+        rows.append(torch.where(on, ty, -1).view(-1, 32))
+        cols.append(torch.where(on, c, -1).view(-1, 32))
+    return torch.cat(rows), torch.cat(cols), by
+
+
+def clahe_wavefronts(x, tab32, tile_h, tile_w, layout) -> float:
+    """Mean wavefronts of one warp's table load on B7's inputs (the data's
+    bytes choose the banks) for the lanes' `layout` (``clahe_lanes``)."""
+    n, h, w = x.shape
+    rx_n = tab32.shape[2] // 256
+    rows, cols, band = clahe_lanes(w, layout)
+    rows, cols = rows.to(x.device), cols.to(x.device)
+    keep = (cols >= 0).any(1)
+    rows, cols = rows[keep], cols[keep]
+    lead = (cols >= 0).int().argmax(1, keepdim=True)  # an active lane of each load
+    rows = torch.where(cols >= 0, rows, rows.gather(1, lead))
+    cols = torch.where(cols >= 0, cols, cols.gather(1, lead))
+    starts = torch.arange(0, h - band + 1, band, device=x.device).view(-1, 1, 1)
+    y = starts + rows  # (bands, loads, 32)
+    cell = ((y + tile_h // 2) // tile_h) * rx_n + (cols + tile_w // 2) // tile_w
+    total = count = 0
+    for f in range(n):
+        keys = cell * 256 + x[f].to(torch.int64)[y, cols]
+        wf = bank_wavefronts(keys)
+        total += float(wf.sum())
+        count += wf.numel()
+    return total / count
+
+
+def clahe8_call(g, dev):
+    """The arguments of the B7 launch of ``clahe(c)`` on 64 frames of 1080p
+    GRAY8 noise (chip_smoke.py's ``clahe_8bit`` row)."""
+    import vszip_tpu_torch as vt
+
+    x = torch.randint(0, 256, (64, 1080, 1920), generator=g, device=dev,
+                      dtype=torch.int32).to(torch.uint8)
+    clip = vt.Clip.from_planes([x], vt.get_format("GRAY8"), device=dev)
+    (a,) = recorded(kc, "clahe8_lookup", lambda: vt.clahe(clip))
+    return a
+
+
+def clahe8(probe, g, dev) -> None:
+    a = clahe8_call(g, dev)
+    layout = (*kc.block_shape(1920), kc.CHUNK)
+    wf = clahe_wavefronts(a[0], a[1], a[4], a[5], layout)
+    measure("clahe8", probe, f"B7 clahe(c) 64x1080x1920 u8, tiles {a[4]}x{a[5]}, table "
+            f"{tuple(a[1].shape)}, blocks of {layout[0]}x{layout[1]} threads; {wf:.3f} "
+            "wavefronts a warp's table load (the data's banks; thread 0, per row of its "
+            "chunk)", lambda: kc.clahe8_lookup(*a), (layout[0] * layout[1], 1, 16))
+
+
+def xpsnr_pair(g, dev):
+    """The luma planes of chip_smoke.py's XPSNR row: 32 frames of 1080p
+    10-bit noise and the same plus noise in [-8, 8), clamped."""
+    org = torch.randint(0, 1024, (32, 1080, 1920), generator=g, device=dev, dtype=torch.int32)
+    rec = (org + torch.randint(-8, 8, org.shape, generator=g, device=dev,
+                               dtype=torch.int32)).clamp(0, 1023)
+    return org.to(torch.uint16), rec.to(torch.uint16)
+
+
+def luma_stats(probe, g, dev) -> None:
+    org, rec = xpsnr_pair(g, dev)
+    for order, temporal in ((1, True), (2, True), (1, False)):
+        measure("luma_stats", probe, f"B11 32x1080x1920 u16, order {order}, temporal "
+                f"{int(temporal)} (lane 0 of each warp, per row step)",
+                lambda: kx.luma_stats(org, rec, order, temporal), (1, 1, 0))
+
+
 def dc_only_shares(a):
     """(rows, warps): the share of the 8-point IDCT rows whose coefficients
     1-7 are all zero, and of warps whose 32 blocks (adjacent in a frame's
@@ -845,16 +1035,19 @@ def compress(probe, g, dev) -> None:
 
 RUNS = {"eedi3_line": eedi3_line, "vcheck": vcheck, "h_fixed": h_fixed, "subspl": subspl,
         "checkmate": checkmate, "v_fixed": v_fixed, "ct_v_quant": ct_v_quant, "m2": m2,
-        "comb_mask": comb_mask, "ssim": ssim, "compress": compress}
+        "comb_mask": comb_mask, "ssim": ssim, "compress": compress, "clahe8": clahe8,
+        "luma_stats": luma_stats}
 # the instantiations the bench's calls launch (B18: uint16, no ref)
 SASS_OF = {"subspl": "subspl_kernelItLb0E", "checkmate": "checkmate_kernel",
            "v_fixed": "v_chip_kernelItLi[15]ELb1E", "comb_mask": "comb_mask_kernelILb0ELb1ELb1E",
            "ssim": "ssim_band_kernelILb1ELb1ELi[12]E",
            "compress": "compress_kernelILb(0ELb0|1ELb1)ELb1E",
-           "ct_v_quant": "ct_v_chip_kernelItLb1E", "m2": "m2_tile_kernelILb1ELb1E"}
+           "ct_v_quant": "ct_v_chip_kernelItLb1E", "m2": "m2_tile_kernelILb1ELb1E",
+           "clahe8": "clahe8_chunk_kernelILb1ELi16E", "luma_stats": "luma_warp_kernelItLb1ELi1E"}
 # the kernel function of a table whose name is not <table>_kernel
 FUNCTION = {"v_fixed": "v_chip_kernel", "ssim": "ssim_band_kernel",
-            "ct_v_quant": "ct_v_chip_kernel", "m2": "m2_tile_kernel"}
+            "ct_v_quant": "ct_v_chip_kernel", "m2": "m2_tile_kernel",
+            "clahe8": "clahe8_chunk_kernel", "luma_stats": "luma_warp_kernel"}
 SASS_LINE = re.compile(r"/\*([0-9a-f]{4,})\*/\s+(?:@!?U?P\w+\s+)?([A-Z][A-Z0-9_]*)[^;]*;")
 
 

@@ -16,8 +16,10 @@ events, 10 calls each) at the bench's shapes: BoxBlur's vertical passes
 at its defaults on 64 frames of 1080p YUV420P8 of ``chip_smoke.py``'s
 8-bit picture, SSIMULACRA2's B13 on the 11 launches of its 1080p row (by
 device time, ``torch.profiler``: the small scales' launches take less
-device time than the host takes to issue them).  It prints each variant's
-mean beside the package's.
+device time than the host takes to issue them), CLAHE's B7 on the launch of
+``clahe(c)`` on 64 frames of 1080p GRAY8 noise, XPSNR's B11 on the luma of
+32 frames of 1080p 10-bit noise (order 1, as at 24 fps).  It prints each
+variant's mean beside the package's.
 """
 
 import sys
@@ -32,9 +34,11 @@ sys.path.insert(0, str(ROOT / "tools"))
 import kernel_spans as ks  # noqa: E402
 from vszip_tpu_torch import _build  # noqa: E402
 from vszip_tpu_torch.kernels import boxblur as kb  # noqa: E402
+from vszip_tpu_torch.kernels import clahe as kc  # noqa: E402
 from vszip_tpu_torch.kernels import comb_mask as km  # noqa: E402
 from vszip_tpu_torch.kernels import deband as kd  # noqa: E402
 from vszip_tpu_torch.kernels import ssim as kss  # noqa: E402
+from vszip_tpu_torch.kernels import xpsnr as kx  # noqa: E402
 
 # (library, the constant's line in the package's source, its replacement,
 # the calls it is timed on)
@@ -63,6 +67,19 @@ VARIANTS = [
      "__launch_bounds__(kMaxThreads, kCols == 2 ? 2 : 4)", "B13"),
     ("ssim", "__launch_bounds__(kMaxThreads, kCols == 2 ? 3 : 4)",
      "__launch_bounds__(kMaxThreads, kCols == 2 ? 4 : 4)", "B13"),
+    # B7: one block of 480 an SM (no register cap: 80 registers)
+    ("clahe", "__launch_bounds__(kMaxThreads, 2)\n", "__launch_bounds__(kMaxThreads)\n", "B7"),
+    # B11: 2 or 4 blocks a warp down a column strip (fewer halo rows, fewer
+    # warps); 2 or 8 warps a thread block; loads 1 or 3 steps ahead
+    ("xpsnr", "constexpr int kBlocksPerWarp = 1;", "constexpr int kBlocksPerWarp = 2;", "B11"),
+    ("xpsnr", "constexpr int kBlocksPerWarp = 1;", "constexpr int kBlocksPerWarp = 4;", "B11"),
+    ("xpsnr", "constexpr int kLumaWarps = 4;", "constexpr int kLumaWarps = 2;", "B11"),
+    ("xpsnr", "constexpr int kLumaWarps = 4;", "constexpr int kLumaWarps = 8;", "B11"),
+    ("xpsnr", "constexpr int kAhead = 2;", "constexpr int kAhead = 1;", "B11"),
+    ("xpsnr", "constexpr int kAhead = 2;", "constexpr int kAhead = 3;", "B11"),
+    # B11's row loop unrolled 3 times (the window's rows renamed, not moved)
+    ("xpsnr", "    for (int y = b * kLumaBlock; y < ye; ++y) {",
+     "#pragma unroll 3\n    for (int y = b * kLumaBlock; y < ye; ++y) {", "B11"),
 ]
 
 
@@ -80,12 +97,16 @@ def main() -> int:
     p8 = [ks.int8_picture(64, h, w, g, dev) for h, w in ((1080, 1920), (540, 960), (540, 960))]
     b13 = [a for _, a in ks.ssim_calls(*ks.ssim_clips(g, dev))] if any(v[3] == "B13" for v in chosen) else []
     b6 = ks.m2_calls(g, dev) if any(v[3] == "B6" for v in chosen) else []
+    b7 = ks.clahe8_call(g, dev) if any(v[3] == "B7" for v in chosen) else ()
+    b11 = ks.xpsnr_pair(g, dev) if any(v[3] == "B11" for v in chosen) else ()
     calls = {"B16": (km, lambda: [km.comb_mask(p, 6, 9, False, True) for p in p8]),
              "B1": (kb, lambda: [kb._ct_v(p, 13) for p in p16]),
              "B6": (kd, lambda: [kd.deband_m2_center(*a) for a in b6]),
              "B3": (kb, lambda: [kb.rt_blur_v_multi(p, 13, 5) for p in p16]),
              "B4": (kb, lambda: [kb.rt_blur_v(p, 23) for p in p16]),
-             "B13": (kss, lambda: [kss.ssim_partials(*a) for a in b13])}
+             "B13": (kss, lambda: [kss.ssim_partials(*a) for a in b13]),
+             "B7": (kc, lambda: [kc.clahe8_lookup(*b7)]),
+             "B11": (kx, lambda: list(kx.luma_stats(*b11, 1, True)))}
     built = {}
     for lib, old, new, which in chosen:
         module, call = calls[which]

@@ -13,8 +13,12 @@ pixel (y, x) lies in cell (ry, rx) = ((y + tile_h//2) // tile_h,
 coordinates, which is what the TPU kernel computes on its padded plane.
 
 It dispatches on the tensor's device: a CPU tensor takes the plain version,
-a CUDA tensor launches ``clahe8_kernel`` in ``csrc/clahe.cu`` or raises.
-Nothing falls back.
+a CUDA tensor launches ``clahe8_chunk_kernel`` in ``csrc/clahe.cu`` or
+raises.  Nothing falls back.  The kernel gives a thread 16 consecutive bytes
+of a row, keeps that chunk's per-column cell table in its registers for all
+its rows, and stages each frame's table in shared memory when it fits
+(``table_on_chip``); ``chunk_vector`` picks its loads' width and
+``block_shape`` its block's shape.
 
 The blend rounds each f32 product and sum separately in the reference's
 order (``oxa``, ``oya``, ``t1``, ``t2``, ``res``, then ``trunc(res+0.5)``);
@@ -37,6 +41,9 @@ from .. import _build
 # kernel and nowhere else; the plain version never counts.
 LAUNCHES = {"clahe8_lookup": 0}
 HIST = 256
+CHUNK = 16  # bytes of a row a thread owns (csrc/clahe.cu kChunk)
+MAX_THREADS = 512  # a block's threads at most (kMaxThreads checks it)
+SMEM_TABLE_BYTES = 96 * 1024  # tables up to this size go to shared memory (kSmemTableBytes)
 
 
 def reset_launches() -> None:
@@ -79,6 +86,34 @@ def clahe8_lookup_ref(x: torch.Tensor, tab32: torch.Tensor, ya: torch.Tensor,
 
 
 # ---------------------------------------------------------------------------
+# the kernel's size rules
+# ---------------------------------------------------------------------------
+
+def table_on_chip(ry_n: int, rx_n: int) -> bool:
+    """Whether a frame's table of ry_n x rx_n cells is staged in shared
+    memory; past ``SMEM_TABLE_BYTES`` the kernel reads it through the
+    read-only cache."""
+    return ry_n * rx_n * HIST * 4 <= SMEM_TABLE_BYTES
+
+
+def chunk_vector(w: int, *ptrs: int) -> int:
+    """Bytes a load or store of the kernel moves: the widest of 16, 8 and 4
+    that divides the row and every plane's address, else 1."""
+    return next((v for v in (16, 8, 4) if w % v == 0 and all(p % v == 0 for p in ptrs)), 1)
+
+
+def block_shape(w: int) -> tuple[int, int]:
+    """The kernel's block for rows of `w` bytes: bx threads across a row,
+    one chunk each, up to ``MAX_THREADS``, and by rows, the by in [1,
+    MAX_THREADS // bx] whose block leaves the smallest share of its last
+    warp's lanes idle, the smallest such by (120 x 4 at 1920)."""
+    bx = min(-(-w // CHUNK), MAX_THREADS)
+    idle = [(-(-bx * by // 32) * 32 - bx * by) / (-(-bx * by // 32) * 32)
+            for by in range(1, MAX_THREADS // bx + 1)]
+    return bx, idle.index(min(idle)) + 1
+
+
+# ---------------------------------------------------------------------------
 # bind (the library is built by ``_build`` at the first launch)
 # ---------------------------------------------------------------------------
 
@@ -86,7 +121,7 @@ def clahe8_lookup_ref(x: torch.Tensor, tab32: torch.Tensor, ya: torch.Tensor,
 def _lib() -> ctypes.CDLL:
     lib = _build.load("clahe")
     p, i = ctypes.c_void_p, ctypes.c_int
-    lib.vz_clahe8_lookup.argtypes = [p, p, p, p, p, i, i, i, i, i, i, i, p]
+    lib.vz_clahe8_lookup.argtypes = [p, p, p, p, p] + [i] * 11 + [p]
     lib.vz_clahe8_lookup.restype = ctypes.c_int
     return lib
 
@@ -129,9 +164,11 @@ def clahe8_lookup(x: torch.Tensor, tab32: torch.Tensor, ya: torch.Tensor,
     ry_n, rx_n = _check(x, tab32, ya, xa, tile_h, tile_w)
     n, h, w = x.shape
     out = torch.empty_like(x)
+    vec = chunk_vector(w, x.data_ptr(), out.data_ptr())
     with torch.cuda.device(x.device):
         _build.check(_lib().vz_clahe8_lookup, x.data_ptr(), tab32.data_ptr(),
                      ya.data_ptr(), xa.data_ptr(), out.data_ptr(), n, h, w, tile_h,
-                     tile_w, ry_n, rx_n, _build.stream(x))
+                     tile_w, ry_n, rx_n, int(table_on_chip(ry_n, rx_n)), vec,
+                     *block_shape(w), _build.stream(x))
     LAUNCHES["clahe8_lookup"] += 1
     return out

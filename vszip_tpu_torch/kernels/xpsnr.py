@@ -13,11 +13,14 @@ exact integers, as the JAX package does; the temporal sum is returned
 without XPSNR's gamma factor, and as zeros with ``temporal=False``.
 
 They dispatch on the tensor's device: a CPU tensor takes the plain version,
-a CUDA tensor launches ``block_stats_kernel`` (luma or chroma
-instance) in ``csrc/xpsnr.cu`` or raises.  Nothing falls back.
+a CUDA tensor launches ``luma_warp_kernel`` (luma: a warp per 64x64 block,
+a lane on two adjacent columns, one load of both where ``pair_loads``
+allows) or ``block_stats_kernel`` (chroma) in ``csrc/xpsnr.cu``, or raises.
+Nothing falls back.
 
-The maps are int32 and every block sum is int64, so any summation order is
-exact: the kernels and the plain versions agree bit for bit.  The TPU
+The maps are int32 (the squares int64) and every block sum is int64, so any
+summation order is exact: the kernels and the plain versions agree bit for
+bit.  The TPU
 kernel's 12-bit limb split and block-indicator matmuls exist only because
 the TPU has no 64-bit lanes; they have no counterpart here.
 """
@@ -49,8 +52,8 @@ def reset_launches() -> None:
 # ---------------------------------------------------------------------------
 
 def block_sum(m: torch.Tensor, bx: int, by: int) -> torch.Tensor:
-    """Exact per-(by x bx)-block sums of a non-negative int32 map, zero
-    padded at the ragged edges, as int64: (N, nbh, nbw)."""
+    """Exact per-(by x bx)-block sums of a non-negative int32 or int64 map,
+    zero padded at the ragged edges, as int64: (N, nbh, nbw)."""
     n, h, w = m.shape
     hb, wb = -h % by, -w % bx
     mp = torch.nn.functional.pad(m, (0, wb, 0, hb))
@@ -91,7 +94,8 @@ def luma_stats_ref(org: torch.Tensor, rec: torch.Tensor, order: int,
     float64 holding exact integers; ta without gamma (zeros with
     ``temporal=False``)."""
     n, h, w = org.shape
-    diff = org.to(_I32) - rec.to(_I32)
+    # squares in int64: a 16-bit difference's square passes 2^31
+    diff = org.to(_I64) - rec.to(_I64)
     sse = block_sum(diff * diff, B, B)
     ys = torch.arange(h, device=org.device).view(h, 1)
     xs = torch.arange(w, device=org.device).view(1, w)
@@ -107,7 +111,7 @@ def luma_stats_ref(org: torch.Tensor, rec: torch.Tensor, order: int,
 
 def chroma_sse_ref(org: torch.Tensor, rec: torch.Tensor, by: int, bx: int) -> torch.Tensor:
     """Plain version of ``chroma_sse``: (N, nbh, nbw) float64 exact sums."""
-    d = org.to(_I32) - rec.to(_I32)
+    d = org.to(_I64) - rec.to(_I64)
     return block_sum(d * d, bx, by).to(torch.float64)
 
 
@@ -119,11 +123,18 @@ def chroma_sse_ref(org: torch.Tensor, rec: torch.Tensor, by: int, bx: int) -> to
 def _lib() -> ctypes.CDLL:
     lib = _build.load("xpsnr")
     p, i = ctypes.c_void_p, ctypes.c_int
-    lib.vz_xpsnr_luma_stats.argtypes = [p, p, p, i, i, i, i, i, i, p]
+    lib.vz_xpsnr_luma_stats.argtypes = [p, p, p, i, i, i, i, i, i, i, p]
     lib.vz_xpsnr_chroma_sse.argtypes = [p, p, p, i, i, i, i, i, i, p]
     for fn in (lib.vz_xpsnr_luma_stats, lib.vz_xpsnr_chroma_sse):
         fn.restype = ctypes.c_int
     return lib
+
+
+def pair_loads(w: int, elem_bytes: int, *ptrs: int) -> bool:
+    """Whether ``luma_warp_kernel`` reads a lane's two columns as one word:
+    an even row width and every plane on 2 * elem_bytes bytes; else one
+    load a column."""
+    return w % 2 == 0 and all(p % (2 * elem_bytes) == 0 for p in ptrs)
 
 
 def _check(name: str, org: torch.Tensor, rec: torch.Tensor) -> None:
@@ -159,8 +170,9 @@ def luma_stats(org: torch.Tensor, rec: torch.Tensor, order: int,
     out = torch.empty((3, n, nbh, nbw), dtype=_I64, device=org.device)
     with torch.cuda.device(org.device):
         _build.check(_lib().vz_xpsnr_luma_stats, org.data_ptr(), rec.data_ptr(),
-                     out.data_ptr(), n, h, w, org.element_size(), order,
-                     int(bool(temporal)), _build.stream(org))
+                     out.data_ptr(), n, h, w, org.element_size(),
+                     int(pair_loads(w, org.element_size(), org.data_ptr(), rec.data_ptr())),
+                     order, int(bool(temporal)), _build.stream(org))
     LAUNCHES["luma_stats"] += 1
     f = out.to(torch.float64)
     return f[0], f[1], f[2]
