@@ -678,6 +678,9 @@ def test_eedi3_wrappers_reject_what_kernels_do_not_take(cuda):
 # XPSNR (B11, B12) and SSIMULACRA2 (B13)
 # ---------------------------------------------------------------------------
 
+CHROMA_BLOCKS = ((32, 32), (64, 32), (16, 16), (64, 64), (32, 64), (8, 16), (3, 7))
+
+
 # B11 gives a warp each 64x64 block and a lane two columns, one load of both
 # where W is even and the planes are on their pair's bytes (pair_loads), else
 # one load a column.  uint16 at 10 bits and at the full range, uint8; H and
@@ -696,8 +699,16 @@ def test_xpsnr_kernels_match_plain(cuda, shape, dtype, peak):
         for k, r in zip(kx.luma_stats(org, rec, order, temporal),
                         kx.luma_stats_ref(org, rec, order, temporal)):
             assert k.dtype == torch.float64 and _same(k, r)
-    for by, bx in ((32, 32), (64, 32), (8, 16), (3, 7)):
+    # B12: a warp per strip of 8-byte lanes (4:2:0, 4:2:2, 4:4:4 and 4:4:0
+    # blocks, and two narrower), the block path at (3, 7); one plane, both
+    # planes in one launch, and org at the peak against rec 0
+    top, zero = torch.full_like(org, peak - 1), torch.zeros_like(org)
+    for by, bx in CHROMA_BLOCKS:
         assert _same(kx.chroma_sse(org, rec, by, bx), kx.chroma_sse_ref(org, rec, by, bx))
+        assert _same(kx.chroma_sse(top, zero, by, bx), kx.chroma_sse_ref(top, zero, by, bx))
+        uv = kx.chroma_sse_uv(org, rec, rec, top, by, bx)
+        assert uv.dtype == torch.float64
+        assert _same(uv, kx.chroma_sse_uv_ref(org, rec, rec, top, by, bx))
 
 
 def _extreme_planes(shape, peak, device):
@@ -735,6 +746,22 @@ def test_xpsnr_luma_kernel_takes_planes_off_their_pairs(cuda):
         for k, r in zip(kx.luma_stats(off, rec, order, temporal),
                         kx.luma_stats_ref(org, rec, order, temporal)):
             assert _same(k, r)
+
+
+@pytest.mark.parametrize("dtype", [torch.uint16, torch.uint8], ids=str)
+def test_xpsnr_chroma_kernel_takes_planes_off_their_wide_loads(cuda, dtype):
+    # rows a whole number of lanes wide, one plane of the launch 2 bytes (u8:
+    # 1) past 8: one load a column, for both planes
+    org, rec = (_rand((2, 70, 960), dtype, cuda, seed) for seed in (1, 2))
+    base = torch.empty(org.numel() + 1, dtype=dtype, device=cuda)
+    off = base[1:].view(org.shape)
+    off.copy_(org)
+    assert not kx.wide_loads(960, org.element_size(), rec.data_ptr(), off.data_ptr())
+    assert kx.wide_loads(960, org.element_size(), rec.data_ptr(), org.data_ptr())
+    for by, bx in CHROMA_BLOCKS:
+        want = kx.chroma_sse_uv_ref(rec, org, org, rec, by, bx)
+        assert _same(kx.chroma_sse_uv(rec, off, off, rec, by, bx), want)
+        assert _same(kx.chroma_sse(off, rec, by, bx), want[1])
 
 
 def _ssim_inputs(shape, device):
@@ -831,9 +858,9 @@ def _metric_clip(fmt, n, h, w, seed, device):
 
 
 @pytest.mark.parametrize("fmt,h,w,fps,launches", [
-    ("YUV420P10", 1080, 1920, 24, (1, 2)),
-    ("YUV420P8", 1080, 1920, 60, (1, 2)),
-    ("YUV422P10", 1080, 1920, 24, (1, 2)),
+    ("YUV420P10", 1080, 1920, 24, (1, 1)),
+    ("YUV420P8", 1080, 1920, 60, (1, 1)),
+    ("YUV422P10", 1080, 1920, 24, (1, 1)),
     ("YUV420P10", 1440, 2560, 24, (0, 0)),
     ("YUV420P8", 480, 640, 24, (0, 0)),
     ("YUV420P10", 32, 40, 24, (0, 0)),
@@ -870,7 +897,7 @@ def test_xpsnr_on_card_takes_strided_planes(cuda, layout):
 
     kx.reset_launches()
     got = vt.xpsnr(strided(c1), strided(c2), fps=24)
-    assert (kx.LAUNCHES["luma_stats"], kx.LAUNCHES["chroma_sse"]) == (1, 2)
+    assert (kx.LAUNCHES["luma_stats"], kx.LAUNCHES["chroma_sse"]) == (1, 1)
     want = vt.xpsnr(c1, c2, fps=24)
     assert _same(got.props["_XPSNR_WSSE"].cpu(), want.props["_XPSNR_WSSE"])
     for k in ("XPSNR_Y", "XPSNR_U", "XPSNR_V", "XPSNR_AVG"):
@@ -907,6 +934,10 @@ def test_metric_wrappers_reject_what_kernels_do_not_take(cuda):
         kx.luma_stats(x.to(torch.int32), x.to(torch.int32), 1, True)
     with pytest.raises(ValueError, match="planes differ"):
         kx.chroma_sse(x, x[:1], 32, 32)
+    with pytest.raises(ValueError, match="planes differ"):
+        kx.chroma_sse_uv(x, x, x[:1], x[:1], 32, 32)
+    with pytest.raises(ValueError, match="blocks >= 1"):
+        kx.chroma_sse_uv(x, x, x, x, 0, 32)
     with pytest.raises(ValueError, match="order 1 or 2"):
         kx.luma_stats(x, x, 3, True)
     f = torch.rand((1, 32, 32), device=cuda)

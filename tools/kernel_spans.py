@@ -92,8 +92,15 @@ exports the query, and ptxas' registers of the package's build:
   unpacking and shuffling them, in shifting the loads in flight and issuing
   the next, in sse, the Laplacian and the temporal term, the block
   reduction, the prologue and the warp's life;
+- ``chroma_sse`` (B12, ``chroma_strip_kernel``) on both chroma planes of
+  that clip in one launch (the row's) and on one, 32x32 blocks, timed by the
+  kernel's device time (``torch.profiler``; events around back-to-back calls
+  measure the host at this size): lane 0's cycles per group of
+  ``kRowsAhead`` rows of each warp in issuing the group's loads, in waiting
+  for them and summing the rows, and per group the segmented reduction and
+  store and the warp's life;
 
-For B18, B15, B3/B4, B1's vertical stage, B6, B16, B13, B14, B7 and B11 it also
+For B18, B15, B3/B4, B1's vertical stage, B6, B16, B13, B14, B7, B11 and B12 it also
 prints the instruction mix of each instantiation and of each of its loops
 (``cuobjdump -sass`` of the
 package's build), with the counts by class (f32, integer and address,
@@ -513,6 +520,34 @@ extern "C" int vz_probe_occupancy(int pair, int u16, int order, int* blocks, int
   return (int)cudaOccupancyMaxActiveBlocksPerMultiprocessor(blocks, k, *threads, 0);
 }
 """),
+    "chroma_sse": ("xpsnr", kx, (
+        "issue a group's loads", "wait for them and sum the group's rows",
+        "segmented reduction and store", "the warp's life"), (
+        ("  const bool lead = ln % group == 0 && bxi < nbw;"
+         "  // the lane that writes its block's sum\n", "",
+         "  long long cs_issue = 0, cs_sum = 0, cs_red = 0, cs_n = 0;\n  uint32_t cs_dep = 0;\n"
+         "  const long long cs_start = clock64();\n"),
+        ("      LaneRow wo[kRowsAhead], wr[kRowsAhead];\n", "",
+         "      const long long cs0 = clock64();\n"),
+        ("#pragma unroll\n"
+         "      for (int k = 0; k < kRowsAhead; ++k) acc = lane_sse<T>(wo[k], wr[k], acc);\n",
+         "      const long long cs1 = clock64();\n",
+         "      cs_dep ^= (uint32_t)acc;\n      const long long cs2 = clock64();\n"
+         "      cs_issue += cs1 - cs0;\n      cs_sum += cs2 - cs1;\n      ++cs_n;\n"),
+        ("    // the block's lanes, adjacent and a power of two, reduce among themselves\n",
+         "    const long long cs3 = clock64();\n", ""),
+        ("    if (lead) out[(((size_t)p * n + i) * nbh + b) * nbw + bxi] = acc;\n", "",
+         "    cs_dep ^= (uint32_t)acc;\n    cs_red += clock64() - cs3;\n"),
+        ("}\n\n// Blocks that fit no lane group.",
+         f"  {_add(0, 'cs_issue', LANE0)} {_add(1, 'cs_sum', LANE0)} {_add(2, 'cs_red', LANE0)}\n"
+         f"  {_add(3, 'clock64() - cs_start', LANE0)} {_add(10, 'cs_dep == 0x1234567u', LANE0)}\n"
+         f"  {_add(SLOTS - 1, 'cs_n', LANE0)}\n", "")), """
+extern "C" int vz_probe_occupancy(int a, int b, int c, int* blocks, int* threads) {
+  *threads = 32 * kChromaWarps;
+  return (int)cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+      blocks, chroma_strip_kernel<uint16_t, true>, *threads, 0);
+}
+"""),
     "compress": ("compress", kz, (
         "issue the next frame's 8 loads", "the block's pipeline (unpack, 4 passes, pack)",
         "store", "the thread's life, per frame"), (
@@ -619,11 +654,14 @@ def events_ms(call, iters: int = 5) -> float:
     return t0.elapsed_time(t1) / iters
 
 
-def device_ms(call, iters: int = 5) -> float:
+def device_ms(call, iters: int = 5, name: str = "") -> float:
     """Mean device time of the kernels one `call` launches (``torch.profiler``):
     unlike events around back-to-back calls, it leaves out the host's time
     between launches, which a call of a few microseconds of device work
-    cannot hide."""
+    cannot hide.  With `name`, the mean of one launch of the kernels whose
+    name holds it (a call that launches one such kernel): a trace that lost
+    some of their events (the profiler does, PERF.md section 7) still gives
+    their mean."""
     from torch.profiler import ProfilerActivity, profile
 
     for _ in range(2):
@@ -633,11 +671,11 @@ def device_ms(call, iters: int = 5) -> float:
         for _ in range(iters):
             call()
         torch.cuda.synchronize()
-    us = sum(ev.time_range.end - ev.time_range.start for ev in prof.events()
-             if ev.device_type == torch.autograd.DeviceType.CUDA)
+    us = [ev.time_range.end - ev.time_range.start for ev in prof.events()
+          if ev.device_type == torch.autograd.DeviceType.CUDA and name in ev.name]
     if not us:
         raise SystemExit("kernel_spans: the profiler saw no device activity")
-    return us / 1e3 / iters
+    return sum(us) / 1e3 / (len(us) if name else iters)
 
 
 def _bits(t: torch.Tensor) -> torch.Tensor:
@@ -656,11 +694,11 @@ def _same(a, b) -> bool:
         for x, y in zip(a, b))
 
 
-def measure(kernel: str, probe: ctypes.CDLL, label: str, call, occ=None) -> None:
-    """Time `call` on the package's build, run it once on `probe`, hold the
-    outputs equal and print the spans."""
+def measure(kernel: str, probe: ctypes.CDLL, label: str, call, occ=None, timer=events_ms) -> None:
+    """Time `call` on the package's build (`timer`: events by default), run it
+    once on `probe`, hold the outputs equal and print the spans."""
     module, names = KERNELS[kernel][1], KERNELS[kernel][2]
-    ms = events_ms(call)
+    ms = timer(call)
     want = call()
     buf = (ctypes.c_ulonglong * SLOTS)()
     probe.vz_probe_read(buf)
@@ -990,10 +1028,10 @@ def clahe8(probe, g, dev) -> None:
             "chunk)", lambda: kc.clahe8_lookup(*a), (layout[0] * layout[1], 1, 16))
 
 
-def xpsnr_pair(g, dev):
-    """The luma planes of chip_smoke.py's XPSNR row: 32 frames of 1080p
-    10-bit noise and the same plus noise in [-8, 8), clamped."""
-    org = torch.randint(0, 1024, (32, 1080, 1920), generator=g, device=dev, dtype=torch.int32)
+def xpsnr_pair(g, dev, shape=(32, 1080, 1920)):
+    """A plane of chip_smoke.py's XPSNR row (its luma by default): 32 frames
+    of 1080p 10-bit noise and the same plus noise in [-8, 8), clamped."""
+    org = torch.randint(0, 1024, shape, generator=g, device=dev, dtype=torch.int32)
     rec = (org + torch.randint(-8, 8, org.shape, generator=g, device=dev,
                                dtype=torch.int32)).clamp(0, 1023)
     return org.to(torch.uint16), rec.to(torch.uint16)
@@ -1005,6 +1043,23 @@ def luma_stats(probe, g, dev) -> None:
         measure("luma_stats", probe, f"B11 32x1080x1920 u16, order {order}, temporal "
                 f"{int(temporal)} (lane 0 of each warp, per row step)",
                 lambda: kx.luma_stats(org, rec, order, temporal), (1, 1, 0))
+
+
+def xpsnr_chroma(g, dev):
+    """The chroma planes of chip_smoke.py's XPSNR row: U and V of 32 frames
+    of 1080p YUV420P10 noise (540x960), org and rec as ``xpsnr_pair``'s."""
+    org, rec = zip(*(xpsnr_pair(g, dev, (32, 540, 960)) for _ in range(2)))
+    return org, rec
+
+
+def chroma_sse(probe, g, dev) -> None:
+    (ou, ov), (ru, rv) = xpsnr_chroma(g, dev)
+    for label, call in (("both chroma planes (the row's launch)",
+                         lambda: kx.chroma_sse_uv(ou, ru, ov, rv, 32, 32)),
+                        ("one chroma plane", lambda: kx.chroma_sse(ou, ru, 32, 32))):
+        measure("chroma_sse", probe, f"B12 {label}, 32x540x960 u16, 32x32 blocks, the "
+                "kernel's device time (lane 0 of each warp, per group of rows)", call, (0, 0, 0),
+                lambda c: device_ms(c, name="chroma_"))
 
 
 def dc_only_shares(a):
@@ -1036,18 +1091,20 @@ def compress(probe, g, dev) -> None:
 RUNS = {"eedi3_line": eedi3_line, "vcheck": vcheck, "h_fixed": h_fixed, "subspl": subspl,
         "checkmate": checkmate, "v_fixed": v_fixed, "ct_v_quant": ct_v_quant, "m2": m2,
         "comb_mask": comb_mask, "ssim": ssim, "compress": compress, "clahe8": clahe8,
-        "luma_stats": luma_stats}
+        "luma_stats": luma_stats, "chroma_sse": chroma_sse}
 # the instantiations the bench's calls launch (B18: uint16, no ref)
 SASS_OF = {"subspl": "subspl_kernelItLb0E", "checkmate": "checkmate_kernel",
            "v_fixed": "v_chip_kernelItLi[15]ELb1E", "comb_mask": "comb_mask_kernelILb0ELb1ELb1E",
            "ssim": "ssim_band_kernelILb1ELb1ELi[12]E",
            "compress": "compress_kernelILb(0ELb0|1ELb1)ELb1E",
            "ct_v_quant": "ct_v_chip_kernelItLb1E", "m2": "m2_tile_kernelILb1ELb1E",
-           "clahe8": "clahe8_chunk_kernelILb1ELi16E", "luma_stats": "luma_warp_kernelItLb1ELi1E"}
+           "clahe8": "clahe8_chunk_kernelILb1ELi16E", "luma_stats": "luma_warp_kernelItLb1ELi1E",
+           "chroma_sse": "chroma_strip_kernelItLb1EE"}
 # the kernel function of a table whose name is not <table>_kernel
 FUNCTION = {"v_fixed": "v_chip_kernel", "ssim": "ssim_band_kernel",
             "ct_v_quant": "ct_v_chip_kernel", "m2": "m2_tile_kernel",
-            "clahe8": "clahe8_chunk_kernel", "luma_stats": "luma_warp_kernel"}
+            "clahe8": "clahe8_chunk_kernel", "luma_stats": "luma_warp_kernel",
+            "chroma_sse": "chroma_strip_kernel"}
 SASS_LINE = re.compile(r"/\*([0-9a-f]{4,})\*/\s+(?:@!?U?P\w+\s+)?([A-Z][A-Z0-9_]*)[^;]*;")
 
 

@@ -18,8 +18,12 @@ at its defaults on 64 frames of 1080p YUV420P8 of ``chip_smoke.py``'s
 device time, ``torch.profiler``: the small scales' launches take less
 device time than the host takes to issue them), CLAHE's B7 on the launch of
 ``clahe(c)`` on 64 frames of 1080p GRAY8 noise, XPSNR's B11 on the luma of
-32 frames of 1080p 10-bit noise (order 1, as at 24 fps).  It prints each
-variant's mean beside the package's.
+32 frames of 1080p 10-bit noise (order 1, as at 24 fps) and B12 on both
+chroma planes of that clip (32x32 blocks, one launch; the kernel's device
+time, ``torch.profiler``).  A variant may also
+set attributes of the wrapper's module for its calls (B12's lane width,
+which the wrapper's ``strip_group`` and ``wide_loads`` read).  It prints
+each variant's mean beside the package's.
 """
 
 import sys
@@ -41,7 +45,7 @@ from vszip_tpu_torch.kernels import ssim as kss  # noqa: E402
 from vszip_tpu_torch.kernels import xpsnr as kx  # noqa: E402
 
 # (library, the constant's line in the package's source, its replacement,
-# the calls it is timed on)
+# the calls it is timed on[, the wrapper module's attributes for the copy])
 VARIANTS = [
     ("comb_mask", "constexpr int kBand = 8; ", "constexpr int kBand = 4; ", "B16"),
     ("comb_mask", "constexpr int kBand = 8; ", "constexpr int kBand = 12;", "B16"),
@@ -80,7 +84,40 @@ VARIANTS = [
     # B11's row loop unrolled 3 times (the window's rows renamed, not moved)
     ("xpsnr", "    for (int y = b * kLumaBlock; y < ye; ++y) {",
      "#pragma unroll 3\n    for (int y = b * kLumaBlock; y < ye; ++y) {", "B11"),
+    # B12: 2 or 8 uint16 columns a lane (4- or 16-byte loads; strips of 64 or
+    # 256 columns); 2 or 4 block rows a warp; 4 or 16 rows' loads issued
+    # together; 2 or 8 warps a block
+    ("xpsnr", "constexpr int kLaneBytes = 8; ", "constexpr int kLaneBytes = 4; ", "B12",
+     {"LANE_BYTES": 4}),
+    ("xpsnr", "constexpr int kLaneBytes = 8; ", "constexpr int kLaneBytes = 16;", "B12",
+     {"LANE_BYTES": 16}),
+    ("xpsnr", "constexpr int kStripRows = 1;", "constexpr int kStripRows = 2;", "B12"),
+    ("xpsnr", "constexpr int kStripRows = 1;", "constexpr int kStripRows = 4;", "B12"),
+    ("xpsnr", "constexpr int kRowsAhead = 8;", "constexpr int kRowsAhead = 4;", "B12"),
+    ("xpsnr", "constexpr int kRowsAhead = 8;", "constexpr int kRowsAhead = 16;", "B12"),
+    ("xpsnr", "constexpr int kChromaWarps = 4;", "constexpr int kChromaWarps = 2;", "B12"),
+    ("xpsnr", "constexpr int kChromaWarps = 4;", "constexpr int kChromaWarps = 8;", "B12"),
+    # B12's lane loads as streaming (evict-first) loads; 12 or 16 blocks an
+    # SM (40 or 32 registers)
+    ("xpsnr", "*reinterpret_cast<Vec*>(r.v) = __ldg(", "*reinterpret_cast<Vec*>(r.v) = __ldcs(",
+     "B12"),
+    ("xpsnr", "__launch_bounds__(32 * kChromaWarps)\n    chroma_strip_kernel(",
+     "__launch_bounds__(32 * kChromaWarps, 12)\n    chroma_strip_kernel(", "B12"),
+    ("xpsnr", "__launch_bounds__(32 * kChromaWarps)\n    chroma_strip_kernel(",
+     "__launch_bounds__(32 * kChromaWarps, 16)\n    chroma_strip_kernel(", "B12"),
 ]
+
+
+def with_attrs(module, attrs, call):
+    """`call()` with `module`'s attributes set to `attrs` for the duration."""
+    saved = {k: getattr(module, k) for k in attrs}
+    try:
+        for k, v in attrs.items():
+            setattr(module, k, v)
+        return call()
+    finally:
+        for k, v in saved.items():
+            setattr(module, k, v)
 
 
 def main() -> int:
@@ -99,6 +136,7 @@ def main() -> int:
     b6 = ks.m2_calls(g, dev) if any(v[3] == "B6" for v in chosen) else []
     b7 = ks.clahe8_call(g, dev) if any(v[3] == "B7" for v in chosen) else ()
     b11 = ks.xpsnr_pair(g, dev) if any(v[3] == "B11" for v in chosen) else ()
+    b12 = ks.xpsnr_chroma(g, dev) if any(v[3] == "B12" for v in chosen) else ((), ())
     calls = {"B16": (km, lambda: [km.comb_mask(p, 6, 9, False, True) for p in p8]),
              "B1": (kb, lambda: [kb._ct_v(p, 13) for p in p16]),
              "B6": (kd, lambda: [kd.deband_m2_center(*a) for a in b6]),
@@ -106,22 +144,30 @@ def main() -> int:
              "B4": (kb, lambda: [kb.rt_blur_v(p, 23) for p in p16]),
              "B13": (kss, lambda: [kss.ssim_partials(*a) for a in b13]),
              "B7": (kc, lambda: [kc.clahe8_lookup(*b7)]),
-             "B11": (kx, lambda: list(kx.luma_stats(*b11, 1, True)))}
+             "B11": (kx, lambda: list(kx.luma_stats(*b11, 1, True))),
+             "B12": (kx, lambda: kx.chroma_sse_uv(b12[0][0], b12[1][0], b12[0][1], b12[1][1],
+                                                  32, 32))}
     built = {}
-    for lib, old, new, which in chosen:
+    for lib, old, new, which, *attrs in chosen:
         module, call = calls[which]
-        timed = ks.device_ms if which == "B13" else (lambda c: ks.events_ms(c, 10))
+        # B12 and B13 by device time: their calls take less device time than
+        # the host takes to issue them
+        timed = ({"B12": lambda c: ks.device_ms(c, 10, "chroma_"), "B13": ks.device_ms}
+                 .get(which, lambda c: ks.events_ms(c, 10)))
         src = _build.source(lib).read_text()
         if src.count(old) != 1:
             raise SystemExit(f"kernel_variants: {lib}: not found once: {old!r}")
         if (lib, new) not in built:
             built[lib, new] = ks.build(lib, src.replace(old, new), f"variant_{len(built)}",
                                       module._lib())
-        copy = built[lib, new]
-        if not ks._same(tuple(ks.using(module, copy, call)), tuple(call())):
+
+        def on_copy(module=module, call=call, copy=built[lib, new],
+                    attrs=attrs[0] if attrs else {}):
+            return with_attrs(module, attrs, lambda: ks.using(module, copy, call))
+
+        if not ks._same(tuple(on_copy()), tuple(call())):
             raise SystemExit(f"kernel_variants: {new!r} disagrees with the package")
-        t = [timed(call), timed(lambda: ks.using(module, copy, call)),
-             timed(lambda: ks.using(module, copy, call)), timed(call)]
+        t = [timed(call), timed(on_copy), timed(on_copy), timed(call)]
         print(f"{which} {new.strip()}: {(t[1] + t[2]) / 2:.3f} ms against the package's "
               f"{(t[0] + t[3]) / 2:.3f} ms ({', '.join(f'{v:.3f}' for v in t)})", flush=True)
     return 0

@@ -1,7 +1,8 @@
 // XPSNR's per-block statistics for Hopper (sm_90a), the CUDA counterparts of
 // the Pallas kernels
-//   luma_warp_kernel<T, pair, order>  B11 luma_stats_pallas  (vszip_tpu/kernels/xpsnr_pallas.py)
-//   block_stats_kernel<T, false>      B12 chroma_sse_pallas  (vszip_tpu/kernels/xpsnr_pallas.py)
+//   luma_warp_kernel<T, pair, order>   B11 luma_stats_pallas  (vszip_tpu/kernels/xpsnr_pallas.py)
+//   chroma_strip_kernel<T, wide>,      B12 chroma_sse_pallas  (vszip_tpu/kernels/xpsnr_pallas.py)
+//   chroma_block_kernel<T>
 // Per (by x bx) block of a plane (64x64 on luma), exact integer sums of
 //   sse = sum (org - rec)^2                       over the block's pixels
 //   sa  = sum |12c - 2(l+r+u+d) - (ul+ur+dl+dr)|  over the pixels 1..h-2, 1..w-2
@@ -31,16 +32,28 @@
 // writes the three sums.  Columns past the plane load 0, which adds 0 to
 // sse and ta; the Laplacian takes only the interior.
 //
-// B12 (block_stats_kernel<T, false>): one thread block per output block and
-// frame, 256 threads as 64 columns x 4 rows (coalesced 128-byte row reads of
-// u16), each thread summing its pixels into int64 registers, then a warp
-// shuffle and a shared-memory reduction.  (Its template's luma branches are
-// no longer launched; B12's redesign takes them out.)
+// B12 (chroma_strip_kernel): one launch takes both chroma planes (U and V
+// always share a shape; a one-plane call passes one).  A warp walks a column
+// strip of 32 lanes x kLaneCols columns (kLaneBytes 8: 128 uint16 or 256
+// uint8, four 32-wide blocks at 4:2:0) down kStripRows block rows of one
+// plane and frame, with no block barrier and no shared memory.  Lane l owns
+// kLaneCols adjacent columns of each row, read as one kLaneBytes load where
+// the row width and every plane's base allow it (kernels.xpsnr.wide_loads),
+// else one load a column, and issues kRowsAhead rows' loads of org and rec
+// before it sums them.  It sums its pixels' squares exactly in registers:
+// uint16 squares (< 2^32) as 32x32->64 multiply-adds, uint8 ones (< 2^16) a
+// row at a time in 32 bits.  A block's bx / kLaneCols lanes (`group`, a
+// power of two up to 32: kernels.xpsnr.strip_group) then reduce among
+// themselves by __shfl_xor_sync, and the first lane of each group writes its
+// block's sum.  Blocks that do not fit a lane group (bx not a multiple of
+// kLaneCols, a group that is no power of two, a block wider than a warp row)
+// take chroma_block_kernel: a warp per block, its lanes striding the block's
+// columns one element each, one warp reduction.
 //
 // What bounds them is device-memory bytes: org and rec read once (the 3x3
-// and temporal neighbours come from L1/L2), three int64 per block written.
-// About 18 integer operations per luma pixel (sse 3, Laplacian 12, temporal
-// 3), 3 per chroma pixel.
+// and temporal neighbours come from L1/L2), three int64 per luma block and
+// one per chroma block written.  About 18 integer operations per luma pixel
+// (sse 3, Laplacian 12, temporal 3), 3 per chroma pixel.
 //
 // Plain C interface, loaded with ctypes.  The entries launch on the given
 // stream, do not synchronise, allocate nothing, and return
@@ -52,109 +65,6 @@
 #include <type_traits>
 
 namespace {
-
-constexpr int kCols = 64;
-constexpr int kRows = 4;
-constexpr int kThreads = kCols * kRows;
-constexpr int kWarps = kThreads / 32;
-
-__device__ __forceinline__ long long warp_sum(long long v) {
-  for (int o = 16; o > 0; o >>= 1) v += __shfl_down_sync(0xffffffffu, v, o);
-  return v;
-}
-
-// Sums of `kSums` per-thread values over the block; thread 0 gets them.
-template <int kSums>
-__device__ __forceinline__ void block_sum(long long (&v)[kSums]) {
-  __shared__ long long part[kSums][kWarps];
-  const int tid = threadIdx.y * kCols + threadIdx.x;
-  const int lane = tid & 31, warp = tid >> 5;
-#pragma unroll
-  for (int s = 0; s < kSums; ++s) {
-    v[s] = warp_sum(v[s]);
-    if (lane == 0) part[s][warp] = v[s];
-  }
-  __syncthreads();
-  if (tid == 0) {
-#pragma unroll
-    for (int s = 0; s < kSums; ++s) {
-      long long t = 0;
-      for (int k = 0; k < kWarps; ++k) t += part[s][k];
-      v[s] = t;
-    }
-  }
-}
-
-// grid (nbw, nbh, n), block (64, 4).  out: kLuma ? (3, n, nbh, nbw) : (n, nbh, nbw)
-// int64.
-template <typename T, bool kLuma>
-__global__ void __launch_bounds__(kThreads)
-    block_stats_kernel(const T* __restrict__ org, const T* __restrict__ rec,
-                       long long* __restrict__ out, int n, int h, int w, int by, int bx,
-                       int order, int temporal) {
-  const int i = blockIdx.z;
-  const int nbh = gridDim.y, nbw = gridDim.x;
-  const size_t plane = (size_t)h * w;
-  const T* o = org + (size_t)i * plane;
-  const T* r = rec + (size_t)i * plane;
-  const T* p1 = (kLuma && i >= 1) ? o - plane : nullptr;
-  const T* p2 = (kLuma && i >= 2) ? o - 2 * plane : nullptr;
-  const int y0 = blockIdx.y * by, x0 = blockIdx.x * bx;
-  const int y1 = min(h, y0 + by), x1 = min(w, x0 + bx);
-  long long v[kLuma ? 3 : 1] = {};
-  for (int y = y0 + threadIdx.y; y < y1; y += kRows) {
-    const size_t row = (size_t)y * w;
-    const bool inner_y = y >= 1 && y < h - 1;
-    for (int x = x0 + threadIdx.x; x < x1; x += kCols) {
-      const int c = (int)o[row + x];
-      const int d = c - (int)r[row + x];
-      v[0] += (long long)d * d;
-      if constexpr (kLuma) {
-        if (inner_y && x >= 1 && x < w - 1) {
-          const T* up = o + row - w + x;
-          const T* mid = o + row + x;
-          const T* dn = o + row + w + x;
-          const int f = 12 * c - 2 * ((int)mid[-1] + (int)mid[1] + (int)up[0] + (int)dn[0]) -
-                        ((int)up[-1] + (int)up[1] + (int)dn[-1] + (int)dn[1]);
-          v[1] += f < 0 ? -f : f;
-        }
-        if (temporal) {
-          const int a = p1 ? (int)p1[row + x] : 0;
-          int t = c - (order == 1 ? a : 2 * a);
-          if (order == 2) t += p2 ? (int)p2[row + x] : 0;
-          v[2] += t < 0 ? -t : t;
-        }
-      }
-    }
-  }
-  block_sum(v);
-  if (threadIdx.x == 0 && threadIdx.y == 0) {
-    const size_t blk = ((size_t)i * nbh + blockIdx.y) * nbw + blockIdx.x;
-    out[blk] = v[0];
-    if constexpr (kLuma) {
-      const size_t stride = (size_t)n * nbh * nbw;
-      out[stride + blk] = v[1];
-      out[2 * stride + blk] = v[2];
-    }
-  }
-}
-
-template <bool kLuma>
-int launch(const void* org, const void* rec, void* out, int n, int h, int w, int elem_bytes,
-           int by, int bx, int order, int temporal, void* stream) {
-  if (n == 0 || h == 0 || w == 0) return 0;
-  const dim3 grid((w + bx - 1) / bx, (h + by - 1) / by, n);
-  const dim3 block(kCols, kRows);
-  cudaStream_t s = (cudaStream_t)stream;
-  long long* os = (long long*)out;
-  if (elem_bytes == 1)
-    block_stats_kernel<uint8_t, kLuma><<<grid, block, 0, s>>>(
-        (const uint8_t*)org, (const uint8_t*)rec, os, n, h, w, by, bx, order, temporal);
-  else
-    block_stats_kernel<uint16_t, kLuma><<<grid, block, 0, s>>>(
-        (const uint16_t*)org, (const uint16_t*)rec, os, n, h, w, by, bx, order, temporal);
-  return (int)cudaGetLastError();
-}
 
 // ---- B11: a warp per 64x64 luma block ----------------------------------
 
@@ -343,6 +253,169 @@ int launch_luma(const void* org, const void* rec, long long* out, int n, int h, 
               : launch_luma<T, false>(os, rs, out, n, h, w, order, temporal, s);
 }
 
+// ---- B12: a warp per column strip of chroma blocks -----------------------
+
+constexpr int kLaneBytes = 8;     // a lane's columns of one row: one load of 4, 8 or 16 bytes
+constexpr int kChromaWarps = 4;   // warps of a thread block, each on its own strip
+constexpr int kStripRows = 1;     // block rows a warp walks down its strip
+constexpr int kRowsAhead = 8;     // rows whose loads a warp issues before it sums them
+
+// The planes of one launch: U and V, or one plane twice.
+template <typename T>
+struct ChromaPlanes {
+  const T* org[2];
+  const T* rec[2];
+};
+
+// A lane's kLaneBytes / sizeof(T) columns of one row as loaded: element c at
+// bit 8 * sizeof(T) * c of the words.
+struct alignas(kLaneBytes) LaneRow {
+  uint32_t v[kLaneBytes / 4];
+};
+
+// The lane's row from p (the row at its first column), of which the first
+// `in` columns lie in the row (the rest read 0): one kLaneBytes load (kWide:
+// `in` is 0 or all of them, p on kLaneBytes), or one load a column.
+template <typename T, bool kWide>
+__device__ __forceinline__ LaneRow load_lane(const T* p, int in) {
+  using Vec = std::conditional_t<kLaneBytes == 16, uint4,
+                                 std::conditional_t<kLaneBytes == 8, uint2, uint32_t>>;
+  LaneRow r = {};
+  if constexpr (kWide) {
+    if (in > 0) *reinterpret_cast<Vec*>(r.v) = __ldg(reinterpret_cast<const Vec*>(p));
+  } else {
+    constexpr int kCols = kLaneBytes / sizeof(T), kPerWord = 4 / sizeof(T);
+#pragma unroll
+    for (int c = 0; c < kCols; ++c)
+      if (c < in) r.v[c / kPerWord] |= (uint32_t)__ldg(p + c) << (8 * sizeof(T) * (c % kPerWord));
+  }
+  return r;
+}
+
+// acc plus the squared differences of a lane's columns of one row of org (a)
+// and rec (b), exact: uint16 squares (< 2^32) as 32x32->64 multiply-adds;
+// uint8 squares (< 2^16) summed in 32 bits (16 under 2^20), then added.
+template <typename T>
+__device__ __forceinline__ long long lane_sse(const LaneRow& a, const LaneRow& b, long long acc) {
+  constexpr int kBits = 8 * sizeof(T), kPerWord = 4 / sizeof(T);
+  constexpr uint32_t kMask = (1u << kBits) - 1;
+  int32_t row = 0;
+#pragma unroll
+  for (int j = 0; j < kLaneBytes / 4; ++j)
+#pragma unroll
+    for (int k = 0; k < kPerWord; ++k) {
+      const int d = (int)((a.v[j] >> (kBits * k)) & kMask) - (int)((b.v[j] >> (kBits * k)) & kMask);
+      if constexpr (sizeof(T) == 2)
+        acc += (long long)d * d;
+      else
+        row += d * d;
+    }
+  return acc + row;
+}
+
+// grid: ceil(warps / kChromaWarps) blocks of kChromaWarps warps (warps under
+// 2^32, and a frame under 2^32 samples); warp g takes
+// column strip g % sx (32 / group blocks), block-row strip (g / sx) % sy of
+// kStripRows block rows, frame (g / (sx * sy)) % n, plane g / (sx * sy * n).
+// group: lanes of a block (bx / kLaneCols, a power of two up to 32).
+// out: (planes, n, nbh, nbw) int64.
+template <typename T, bool kWide>
+__global__ void __launch_bounds__(32 * kChromaWarps)
+    chroma_strip_kernel(ChromaPlanes<T> pl, long long* __restrict__ out, int planes, int n,
+                        int h, int w, int by, int group, int nbh, int nbw) {
+  constexpr int kLaneCols = kLaneBytes / sizeof(T);
+  const int ln = threadIdx.x % 32, per = 32 / group;
+  const unsigned sx = (nbw + per - 1) / per, sy = (nbh + kStripRows - 1) / kStripRows;
+  const unsigned g = blockIdx.x * kChromaWarps + threadIdx.x / 32;
+  if (g >= (unsigned)planes * n * sy * sx) return;
+  const int cs = (int)(g % sx), s = (int)(g / sx % sy);
+  const int i = (int)(g / sx / sy % n), p = (int)(g / sx / sy / n);
+  const size_t frame = (size_t)i * h * w;
+  const T* o = pl.org[p] + frame;
+  const T* r = pl.rec[p] + frame;
+  const int x = (cs * 32 + ln) * kLaneCols;  // the lane's first column
+  const int in = min(max(w - x, 0), kLaneCols);
+  const int bxi = cs * per + ln / group;     // the lane's block column
+  const bool lead = ln % group == 0 && bxi < nbw;  // the lane that writes its block's sum
+  const unsigned uw = w;
+  const int b1 = min(nbh, (s + 1) * kStripRows);
+  for (int b = s * kStripRows; b < b1; ++b) {
+    const int ye = min(h, (b + 1) * by);
+    long long acc = 0;  // a block's sum: under 2^32 a pixel
+    for (int y = b * by; y < ye; y += kRowsAhead) {
+      LaneRow wo[kRowsAhead], wr[kRowsAhead];
+#pragma unroll
+      for (int k = 0; k < kRowsAhead; ++k) {
+        const unsigned at = (unsigned)(y + k) * uw + x;
+        const int ink = y + k < ye ? in : 0;
+        wo[k] = load_lane<T, kWide>(o + at, ink);
+        wr[k] = load_lane<T, kWide>(r + at, ink);
+      }
+#pragma unroll
+      for (int k = 0; k < kRowsAhead; ++k) acc = lane_sse<T>(wo[k], wr[k], acc);
+    }
+    // the block's lanes, adjacent and a power of two, reduce among themselves
+    for (int m = group / 2; m > 0; m /= 2) acc += __shfl_xor_sync(kFull, acc, m);
+    if (lead) out[(((size_t)p * n + i) * nbh + b) * nbw + bxi] = acc;
+  }
+}
+
+// Blocks that fit no lane group.  grid: ceil(warps / kChromaWarps) blocks;
+// warp g takes block g of the (planes, n, nbh, nbw) output, its lanes
+// striding the block's columns.
+template <typename T>
+__global__ void __launch_bounds__(32 * kChromaWarps)
+    chroma_block_kernel(ChromaPlanes<T> pl, long long* __restrict__ out, int planes, int n,
+                        int h, int w, int by, int bx, int nbh, int nbw) {
+  const int ln = threadIdx.x % 32;
+  const unsigned g = blockIdx.x * kChromaWarps + threadIdx.x / 32;
+  if (g >= (unsigned)planes * n * nbh * nbw) return;
+  const int bj = (int)(g % nbw), bi = (int)(g / nbw % nbh);
+  const int i = (int)(g / nbw / nbh % n), p = (int)(g / nbw / nbh / n);
+  const size_t frame = (size_t)i * h * w;
+  const T* o = pl.org[p] + frame;
+  const T* r = pl.rec[p] + frame;
+  const int x1 = min(w, (bj + 1) * bx), y1 = min(h, (bi + 1) * by);
+  long long acc = 0;
+  for (int y = bi * by; y < y1; ++y) {
+    const unsigned row = (unsigned)y * (unsigned)w;
+    for (int x = bj * bx + ln; x < x1; x += 32) {
+      const int d = (int)__ldg(o + row + x) - (int)__ldg(r + row + x);
+      acc += (long long)d * d;
+    }
+  }
+  for (int m = 16; m > 0; m /= 2) acc += __shfl_xor_sync(kFull, acc, m);
+  if (ln == 0) out[g] = acc;
+}
+
+template <typename T>
+int launch_chroma(const void* const* planes_in, int planes, long long* out, int n, int h,
+                  int w, int by, int bx, int group, int wide, cudaStream_t s) {
+  const ChromaPlanes<T> pl = {{(const T*)planes_in[0], (const T*)planes_in[2]},
+                              {(const T*)planes_in[1], (const T*)planes_in[3]}};
+  const int nbh = (h + by - 1) / by, nbw = (w + bx - 1) / bx;
+  const int threads = 32 * kChromaWarps;
+  long long warps = (long long)planes * n;
+  if (group) {
+    const int per = 32 / group;
+    warps *= (long long)((nbh + kStripRows - 1) / kStripRows) * ((nbw + per - 1) / per);
+  } else {
+    warps *= (long long)nbh * nbw;
+  }
+  // the kernels index warps in 32 bits
+  if (warps > 0xffffffffLL) return (int)cudaErrorInvalidConfiguration;
+  const unsigned grid = (unsigned)((warps + kChromaWarps - 1) / kChromaWarps);
+  if (!group)
+    chroma_block_kernel<T><<<grid, threads, 0, s>>>(pl, out, planes, n, h, w, by, bx, nbh, nbw);
+  else if (wide)
+    chroma_strip_kernel<T, true><<<grid, threads, 0, s>>>(pl, out, planes, n, h, w, by, group,
+                                                          nbh, nbw);
+  else
+    chroma_strip_kernel<T, false><<<grid, threads, 0, s>>>(pl, out, planes, n, h, w, by, group,
+                                                           nbh, nbw);
+  return (int)cudaGetLastError();
+}
+
 }  // namespace
 
 extern "C" {
@@ -361,11 +434,21 @@ int vz_xpsnr_luma_stats(const void* org, const void* rec, void* out, int n, int 
              : launch_luma<uint16_t>(org, rec, os, n, h, w, pair, order, temporal, s);
 }
 
-// org, rec: (n, h, w) uint8/uint16 as above; out: (n, ceil(h/by), ceil(w/bx))
-// int64 per-block SSE.
-int vz_xpsnr_chroma_sse(const void* org, const void* rec, void* out, int n, int h, int w,
-                        int elem_bytes, int by, int bx, void* stream) {
-  return launch<false>(org, rec, out, n, h, w, elem_bytes, by, bx, 1, 0, stream);
+// org0, rec0 (and org1, rec1 where planes is 2): (n, h, w) uint8 (elem_bytes
+// 1) or uint16 (2), contiguous; out: (planes, n, ceil(h/by), ceil(w/bx))
+// int64 per-block SSE.  group: a block's lanes on the strip path
+// (kernels.xpsnr.strip_group), 0 for the block path; wide: every row of
+// every plane read in 8-byte loads (kernels.xpsnr.wide_loads).
+int vz_xpsnr_chroma_sse(const void* org0, const void* rec0, const void* org1, const void* rec1,
+                        int planes, void* out, int n, int h, int w, int elem_bytes, int by,
+                        int bx, int group, int wide, void* stream) {
+  if (n == 0 || h == 0 || w == 0) return 0;
+  const void* in[4] = {org0, rec0, planes == 2 ? org1 : org0, planes == 2 ? rec1 : rec0};
+  cudaStream_t s = (cudaStream_t)stream;
+  long long* os = (long long*)out;
+  return elem_bytes == 1
+             ? launch_chroma<uint8_t>(in, planes, os, n, h, w, by, bx, group, wide, s)
+             : launch_chroma<uint16_t>(in, planes, os, n, h, w, by, bx, group, wide, s);
 }
 
 }  // extern "C"

@@ -19,7 +19,8 @@ The maps are int32 and the block sums int64 (exact, as the JAX package's
 f64 sums of exact integers), so ``_XPSNR_WSSE`` equals the JAX package's.
 At B = 64 with no downsampling (HD-class pictures, the bench's 1080p) the
 luma statistics go through B11 (``kernels.xpsnr.luma_stats``) and chroma
-blocks with ``by % 8 == 0`` through B12 (``chroma_sse``); those wrappers run
+blocks with ``by % 8 == 0`` through B12 (``chroma_sse_uv``, one launch for
+U and V); those wrappers run
 their kernels on CUDA tensors and their plain versions on CPU tensors.  The
 props stay on the planes' device: nothing here reads a value back to the
 host except the ``verbose`` line.
@@ -230,15 +231,19 @@ def _xpsnr_frame_stats(org, rec, depth: int, frame_rate: int, temporal: bool, di
     s = (sse_blk * weights).sum(dim=(1, 2))
     wsse = [torch.where(s <= 0.0, 0.0, torch.trunc(torch.clamp(s, min=0.0) * avg_act + 0.5))]
 
-    for c in range(1, num_comps):
-        bx = (b * widths[c]) // w
-        by = (b * heights[c]) // h
-        # chroma blocks may be rectangular (bx != by for 422/440)
-        if use_kernel and by % 8 == 0:
-            blk = kernels.chroma_sse(org[c].contiguous(), rec[c].contiguous(), by, bx)
-        else:
+    # U and V share a shape, so their blocks (rectangular for 422/440) are
+    # one size, and B12 takes both planes in one launch
+    bx = (b * widths[1]) // w
+    by = (b * heights[1]) // h
+    if use_kernel and by % 8 == 0:
+        chroma = kernels.chroma_sse_uv(org[1].contiguous(), rec[1].contiguous(),
+                                       org[2].contiguous(), rec[2].contiguous(), by, bx)
+    else:
+        chroma = []
+        for c in range(1, num_comps):
             dc = org[c].to(_I32) - rec[c].to(_I32)
-            blk = _block_sum(dc * dc, bx, by)
+            chroma.append(_block_sum(dc * dc, bx, by))
+    for blk in chroma:
         s = (blk * weights).sum(dim=(1, 2))
         wsse.append(torch.where(s <= 0.0, 0.0, torch.trunc(s * avg_act + 0.5)))
 
