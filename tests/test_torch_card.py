@@ -1,7 +1,8 @@
 """The CUDA kernels on the card: each against its plain PyTorch version, the
 slice (BoxBlur, Limiter, Deband, CLAHE, EEDI3, XPSNR, SSIMULACRA2, Compress,
-Checkmate, CombMask, CombMaskMT, BilateralDither, MosquitoNR) on the card
-against the port's CPU path, the launch counters, and the wrappers' input
+Checkmate, CombMask, CombMaskMT, BilateralDither, MosquitoNR, Bilateral and
+the plain filters) on the card against the port's CPU path, the streaming
+runtime against resident calls, the launch counters, and the wrappers' input
 checks.  Every test here needs an NVIDIA GPU and skips
 without one.  This file imports no JAX (the card's machine has none), so it
 runs there on its own, without tests/conftest.py:
@@ -19,7 +20,13 @@ and XPSNR's props; the SSIMULACRA2 score, ``100 - 10 s^0.63`` of those
 sums, within rtol 1e-9 on a linear input (the fold's f64 rounding grows
 through the power; measured 3.6e-12 on the H100) and 1e-6 on a non-linear
 one (torch's f32 ``pow`` in the sRGB EOTF may round its last bit
-differently on the two devices).
+differently on the two devices).  Bilateral (plain torch) is held to its
+contract, not bit for bit: CUDA's ``expf`` and torch's CPU ``exp`` round
+differently, so integer planes may differ by 1 LSB (algorithm 2 on under 1%
+of pixels), f32 within rtol 1e-5 / atol 1e-6 (algorithm 1: 3e-5 / 3e-6), f16
+within one ulp.  The plain filters' integer planes and props are bit-exact,
+their f64 props within rtol 1e-12; streamed runs equal resident ones on the
+card bit for bit.
 """
 
 import importlib
@@ -1430,3 +1437,233 @@ def test_bilateral_dither_wrappers_reject_what_kernels_do_not_take(cuda):
         kbd.subspl_blur(x, None, 4, start, dyx.to(torch.int32), *c)
     with pytest.raises(ValueError, match="within"):
         kbd.subspl_blur(x, None, 3, start, dyx, *c)
+
+
+# ---------------------------------------------------------------------------
+# Bilateral (plain torch), the plain filters and the streaming runtime
+# ---------------------------------------------------------------------------
+
+def _seeded_clip(fmt_name, n, h, w, seed, device):
+    """Full-range integers or floats in [0, 1) from a NumPy seed, on `device`."""
+    f = vt.get_format(fmt_name)
+    rng = np.random.default_rng(seed)
+    planes = []
+    for p in range(f.num_planes):
+        shape = (n,) + f.plane_dims(w, h, p)[::-1]
+        if f.sample_type is vt.SampleType.FLOAT:
+            planes.append(rng.random(shape, dtype=np.float32).astype(f.storage_dtype))
+        else:
+            planes.append(rng.integers(0, 1 << f.bits_per_sample, shape).astype(f.storage_dtype))
+    return vt.Clip.from_planes(planes, f, device=device)
+
+
+def _bilateral_holds(got, want, alg):
+    """The Bilateral contract of the docstring, card planes against CPU ones."""
+    for g, w_ in zip(got.planes, want.planes):
+        g = g.cpu()
+        assert g.dtype == w_.dtype and g.shape == w_.shape
+        if w_.dtype == torch.float32:
+            rtol, atol = (1e-5, 1e-6) if alg == 2 else (3e-5, 3e-6)
+            assert torch.allclose(g, w_, rtol=rtol, atol=atol)
+        elif w_.dtype == torch.float16:
+            w64 = w_.double()
+            ulp = torch.from_numpy(np.spacing(np.abs(w_.numpy())).astype(np.float64))
+            assert bool(((g.double() - w64).abs() <= ulp).all())
+        else:
+            d = (g.to(torch.int64) - w_.to(torch.int64)).abs()
+            assert int(d.max()) <= 1
+            if alg == 2:
+                assert float((d > 0).double().mean()) < 0.01
+
+
+@pytest.mark.parametrize("fmt,args,alg", [
+    ("YUV420P16", {"sigmaS": 2.0, "sigmaR": 2.0, "planes": [0, 1, 2]}, 2),
+    ("GRAY8", {"sigmaS": 3.0, "sigmaR": 0.05}, 2),
+    ("GRAYH", {"sigmaS": 2.0, "sigmaR": 0.1, "algorithm": 2}, 2),
+    ("GRAYS", {"sigmaS": 2.0, "sigmaR": 2.0}, 2),
+    ("GRAY16", {"sigmaS": 2.0, "sigmaR": 0.1, "algorithm": 1}, 1),
+    ("GRAYS", {"sigmaS": 3.0, "sigmaR": 0.1, "algorithm": 1}, 1),
+    ("YUV420P8", {"sigmaS": 3.0, "sigmaR": 0.03, "algorithm": 1}, 1),
+    ("YUV420P16", {"sigmaS": 2.0, "sigmaR": 2.0, "planes": [0]}, 2),
+], ids=str)
+@pytest.mark.parametrize("with_ref", [False, True])
+def test_bilateral_on_card_holds_its_contract_against_cpu(cuda, fmt, args, alg, with_ref):
+    c = _seeded_clip(fmt, 2, 40, 64, 1, cuda)
+    ref = _seeded_clip(fmt, 3, 40, 64, 2, cuda) if with_ref else None
+    for m in (kb, kd, kc, ke, kx, ks, kz, kk, km, kbd):
+        m.reset_launches()
+    got = vt.bilateral(c, ref=ref, **args)
+    assert not any(n for m in (kb, kd, kc, ke, kx, ks, kz, kk, km, kbd)
+                   for n in m.LAUNCHES.values())
+    assert all(p.is_cuda for p in got.planes)
+    want = vt.bilateral(c.to("cpu"), ref=None if ref is None else ref.to("cpu"), **args)
+    _bilateral_holds(got, want, alg)
+
+
+def _props_equal(got, want, keys):
+    for k in keys:
+        g, w_ = got.props[k], want.props[k]
+        assert g.is_cuda and g.dtype == w_.dtype and g.shape == w_.shape, k
+        if w_.dtype == torch.float64:
+            assert torch.allclose(g.cpu(), w_, rtol=1e-12, atol=0), k
+        else:
+            assert _same(g.cpu(), w_), k
+
+
+@pytest.mark.parametrize("op,fmt,args,keys", [
+    ("plane_average", "YUV420P16", {"planes": [0, 1, 2], "exclude": [0, 65535]}, ["psmAvg"]),
+    ("plane_average", "GRAYS", {"exclude": [0.5]}, ["psmAvg"]),
+    ("plane_average", "GRAY8", {"clipb": True}, ["psmAvg", "psmDiff"]),
+    ("plane_minmax", "YUV420P16", {"minthr": 0.1, "maxthr": 0.1, "planes": [0, 1, 2]},
+     ["psmMin", "psmMax"]),
+    ("plane_minmax", "RGB24", {"minthr": 0.1, "maxthr": 0.1, "clipb": True},
+     ["psmMin", "psmMax", "psmDiff"]),
+    ("plane_minmax", "GRAYS", {"minthr": 0.25}, ["psmMin", "psmMax"]),
+    ("plane_minmax", "GRAYH", {}, ["psmMin", "psmMax"]),
+    ("plane_minmax", "YUV420P8", {"planes": [0, 1, 2], "clipb": True},
+     ["psmMin", "psmMax", "psmDiff"]),
+    ("limit_filter", "YUV420P16", {"dark_thr": 3.0, "bright_thr": 5.0, "elast": 2.5}, []),
+    ("limit_filter", "GRAYS", {"dark_thr": 40.0, "bright_thr": 20.0, "elast": 3.0}, []),
+    ("limit_filter", "GRAY8", {"ref": True, "dark_thr": 60.0, "elast": 1.5}, []),
+    ("adaptive_binarize", "YUV420P8", {"c": 3}, []),
+    ("packrgb", "RGB24", {}, []),
+    ("packrgb", "RGB30", {}, []),
+    ("rfs", "YUV420P16", {"frames": [0, 2], "planes": [1, 2]}, []),
+    ("rfs", "GRAY32", {"frames": [1]}, []),
+    ("colormap", "GRAY8", {"color": 20}, []),
+    ("colormap", "GRAY8", {"color": 12}, []),
+], ids=str)
+def test_plain_filters_on_card_match_cpu(cuda, op, fmt, args, keys):
+    c = _seeded_clip(fmt, 3, 38, 54, 4, cuda)
+    other = _seeded_clip(fmt, 3 if op == "limit_filter" else 4, 38, 54, 5, cuda)
+    args = dict(args)
+    pos = ()
+    if op in ("limit_filter", "adaptive_binarize", "rfs"):
+        pos = (other,)
+    for k in ("clipb", "ref"):
+        if args.get(k):
+            args[k] = _seeded_clip(fmt, 3, 38, 54, 6, cuda)
+    got = getattr(vt, op)(c, *pos, **args)
+    cpu_args = {k: v.to("cpu") if isinstance(v, vt.Clip) else v for k, v in args.items()}
+    want = getattr(vt, op)(c.to("cpu"), *(o.to("cpu") for o in pos), **cpu_args)
+    assert got.format == want.format
+    for g, w_ in zip(got.planes, want.planes):
+        assert g.is_cuda and _same(g.cpu(), w_)
+    _props_equal(got, want, keys)
+
+
+def _stream_frames(fmt_name, n, h, w, seed):
+    f = vt.get_format(fmt_name)
+    rng = np.random.default_rng(seed)
+    return f, tuple(rng.integers(0, 1 << f.bits_per_sample,
+                                 (n,) + f.plane_dims(w, h, p)[::-1]).astype(f.storage_dtype)
+                    for p in range(f.num_planes))
+
+
+def _kept(fmt):
+    chunks = {}
+
+    def sink(start, clip):
+        chunks[start] = clip
+
+    def whole():
+        return [np.concatenate([chunks[s].planes[p] for s in sorted(chunks)])
+                for p in range(fmt.num_planes)]
+
+    return sink, whole, chunks
+
+
+@pytest.mark.parametrize("batch", [4, 5, 20])
+def test_streamed_boxblur_equals_resident_on_card(cuda, batch):
+    fmt, planes = _stream_frames("YUV420P16", 13, 96, 128, 0)
+    resident = vt.boxblur(vt.Clip.from_planes(planes, fmt, device=cuda), hradius=13, vradius=13)
+    sink, whole, chunks = _kept(fmt)
+    kb.reset_launches()
+    vt.process_stream(vt.ArraySource(planes, fmt),
+                      lambda c: vt.boxblur(c, hradius=13, vradius=13), batch=batch, sink=sink)
+    assert kb.LAUNCHES["ct_blur_int"] == 3 * len(chunks)
+    for got, want in zip(whole(), resident.planes):
+        assert np.array_equal(got, want.cpu().numpy())
+
+
+def test_streamed_checkmate_with_overlap_equals_resident_on_card(cuda):
+    fmt, planes = _stream_frames("YUV420P8", 11, 64, 96, 1)
+    resident = vt.checkmate(vt.Clip.from_planes(planes, fmt, device=cuda), tthr2=10)
+    sink, whole, _ = _kept(fmt)
+    vt.process_stream(vt.ArraySource(planes, fmt), lambda c: vt.checkmate(c, tthr2=10),
+                      batch=4, overlap=2, sink=sink)
+    for got, want in zip(whole(), resident.planes):
+        assert np.array_equal(got, want.cpu().numpy())
+
+
+def test_streamed_xpsnr_equals_resident_on_card(cuda):
+    fmt, ref_p = _stream_frames("YUV420P8", 13, 64, 128, 2)
+    rng = np.random.default_rng(3)
+    dist_p = tuple(np.clip(p.astype(np.int32) + rng.integers(-9, 9, p.shape), 0, 255)
+                   .astype(np.uint8) for p in ref_p)
+    resident = vt.xpsnr(vt.Clip.from_planes(ref_p, fmt, device=cuda),
+                        vt.Clip.from_planes(dist_p, fmt, device=cuda), fps=24)
+    batch, overlap, n = 4, 2, 13
+    starts = iter(range(0, n, batch))
+
+    def op(chunk):
+        s = next(starts)
+        lo, hi = max(0, s - overlap), min(n, s + batch + overlap)
+        r = vt.Clip.from_planes(tuple(p[lo:hi] for p in ref_p), fmt, device=cuda)
+        return vt.xpsnr(r, chunk, fps=24)
+
+    props = vt.process_stream(vt.ArraySource(dist_p, fmt), op, batch=batch, overlap=overlap,
+                              donate=False)
+    for k in ("XPSNR_Y", "XPSNR_U", "XPSNR_V", "XPSNR_AVG"):
+        want = resident.props[k].cpu().numpy()
+        assert props[k].dtype == want.dtype and np.array_equal(props[k].view(np.int64),
+                                                                want.view(np.int64)), k
+
+
+def test_streamed_memory_mapped_source_on_card(cuda, tmp_path):
+    fmt, planes = _stream_frames("YUV420P16", 9, 64, 96, 4)
+    maps = []
+    for i, p in enumerate(planes):
+        np.save(tmp_path / f"p{i}.npy", p)
+        maps.append(np.load(tmp_path / f"p{i}.npy", mmap_mode="r"))
+    resident = vt.boxblur(vt.Clip.from_planes(planes, fmt, device=cuda), hradius=3, vradius=3)
+    sink, whole, _ = _kept(fmt)
+    vt.process_stream(vt.ArraySource(maps, fmt), lambda c: vt.boxblur(c, hradius=3, vradius=3),
+                      batch=4, sink=sink)
+    for got, want in zip(whole(), resident.planes):
+        assert np.array_equal(got, want.cpu().numpy())
+
+
+def test_streamed_sink_keeps_its_chunks_on_card(cuda):
+    """An op that returns its input planes (PlaneAverage) and a sink that
+    keeps every chunk: each kept plane is its own host array, equal to the
+    source's frames, though the device buffers and staging ring are reused."""
+    fmt, planes = _stream_frames("YUV420P16", 17, 64, 96, 5)
+    sink, _, chunks = _kept(fmt)
+    props = vt.process_stream(vt.ArraySource(planes, fmt), lambda c: vt.plane_average(c),
+                              batch=3, overlap=1, sink=sink)
+    assert sorted(chunks) == list(range(0, 17, 3))
+    kept = []
+    for s, clip in chunks.items():
+        n = min(3, 17 - s)
+        for p, plane in enumerate(clip.planes):
+            assert np.array_equal(plane, planes[p][s: s + n])
+            kept.append(plane)
+        assert clip.props["psmAvg"].shape == (n, 1)
+    for i, a in enumerate(kept):
+        assert not any(np.shares_memory(a, b) for b in kept[i + 1:])
+    want = vt.plane_average(vt.Clip.from_planes(planes, fmt, device=cuda)).props["psmAvg"]
+    assert np.array_equal(props["psmAvg"], want.cpu().numpy())
+
+
+def test_streamed_frame_doubling_and_ragged_batch_on_card(cuda):
+    rng = np.random.default_rng(6)
+    x = rng.random((7, 24, 32), dtype=np.float32)
+    fmt = vt.get_format("GRAYS")
+    resident = vt.eedi3(vt.Clip.from_planes((x,), fmt, device=cuda), field=2).planes[0]
+    sink, whole, chunks = _kept(fmt)
+    vt.process_stream(vt.ArraySource((x,), fmt), lambda c: vt.eedi3(c, field=2), batch=3,
+                      sink=sink, donate=False)
+    assert sorted(chunks) == [0, 6, 12]
+    assert _same(torch.from_numpy(whole()[0]), resident.cpu())
+

@@ -1,12 +1,14 @@
 """vszip_tpu_torch: the PyTorch/CUDA port of vszip_tpu for NVIDIA Hopper.
 
 The same surface as ``vszip_tpu`` for the ported slice: a ``Clip`` of
-``(N, H, W)`` plane tensors, the format and parameter layer, and the filters
-BoxBlur, Deband, Limiter, CLAHE, EEDI3/EEDI3H, Compress, Checkmate,
-CombMask, CombMaskMT, BilateralDither, MosquitoNR and the metrics XPSNR and
-SSIMULACRA2 with the same
-arguments, validation messages and results, and the format conversions
-``bit_depth``, ``resize``, ``to_rgbs`` and ``srgb_to_linear``.  Integer
+``(N, H, W)`` plane tensors, the format and parameter layer, every filter of
+the JAX package (BoxBlur, Bilateral, BilateralDither, Deband, Limiter,
+LimitFilter, CLAHE, EEDI3/EEDI3H, Compress, Checkmate, CombMask, CombMaskMT,
+MosquitoNR, AdaptiveBinarize, PackRGB, RFS, ColorMap, and the metrics
+PlaneAverage, PlaneMinMax, XPSNR and SSIMULACRA2) with the same arguments,
+validation messages and results, the format conversions ``bit_depth``,
+``resize``, ``to_rgbs`` and ``srgb_to_linear``, and the streaming runtime
+(``ArraySource``, ``SyntheticSource``, ``process_stream``).  Integer
 BoxBlur, Deband, 8-bit CLAHE, EEDI3, Compress, Checkmate, CombMask,
 BilateralDither, XPSNR's block statistics and SSIMULACRA2's per-scale sums
 run hand-written CUDA
@@ -26,8 +28,11 @@ from .core.format import (
 )
 from .core.params import VSZipError
 from .core.resample import bit_depth, resize, srgb_to_linear, to_rgbs
-from .ops import (bilateral_dither, boxblur, checkmate, clahe, comb_mask, comb_mask_mt, compress,
-                  deband, eedi3, eedi3h, limiter, mosquito_nr, ssimulacra2, xpsnr)
+from .ops import (adaptive_binarize, bilateral, bilateral_dither, boxblur, checkmate, clahe,
+                  colormap, comb_mask, comb_mask_mt, compress, deband, eedi3, eedi3h,
+                  limit_filter, limiter, mosquito_nr, packrgb, plane_average, plane_minmax, rfs,
+                  ssimulacra2, xpsnr)
+from .runtime.stream import ArraySource, SyntheticSource, process_stream
 
 __all__ = [
     "Clip",
@@ -44,20 +49,31 @@ __all__ = [
     "resize",
     "srgb_to_linear",
     "to_rgbs",
+    "adaptive_binarize",
+    "bilateral",
     "bilateral_dither",
     "boxblur",
     "checkmate",
     "clahe",
+    "colormap",
     "comb_mask",
     "comb_mask_mt",
     "compress",
     "deband",
     "eedi3",
     "eedi3h",
+    "limit_filter",
     "limiter",
     "mosquito_nr",
+    "packrgb",
+    "plane_average",
+    "plane_minmax",
+    "rfs",
     "ssimulacra2",
     "xpsnr",
+    "ArraySource",
+    "SyntheticSource",
+    "process_stream",
 ]
 
 __version__ = "0.1.0"

@@ -2,8 +2,8 @@
 
 The same helpers, with the same message text, as ``vszip_tpu.core.params``:
 ``mapGetPlanes`` (reference src/helper.zig:128-158), ``getArray`` /
-``Maps.getArray`` (src/helper.zig:340-452) and ``compareNodes``
-(src/helper.zig:166-215).  All of it is plain Python that runs before any
+``Maps.getArray`` (src/helper.zig:340-452), ``compareNodes``
+(src/helper.zig:166-215) and ``scaleValue`` (src/helper.zig:306-338).  All of it is plain Python that runs before any
 tensor is touched, so the kernels only ever see pre-checked parameters.
 """
 
@@ -12,6 +12,8 @@ from __future__ import annotations
 from typing import TYPE_CHECKING, Sequence
 
 import numpy as np
+
+from .format import ColorRange, SampleType
 
 if TYPE_CHECKING:
     from .clip import Clip
@@ -122,3 +124,28 @@ def compare_clips(clips: Sequence["Clip"], filter_name: str,
             raise VSZipError(
                 f"{filter_name}: second clip has less frames than input clip."
             )
+
+
+def scale_value(value: float, clip: "Clip", depth_in: int = 8, chroma: bool = False,
+                sample_type_in: SampleType = SampleType.INTEGER,
+                color_range=None) -> float:
+    """8-bit-scale parameter -> clip depth (reference scaleValue,
+    src/helper.zig:306-338): scales by (peak-lowest) ratio in the clip's
+    color range, rounds+clamps for integer outputs.  `color_range` overrides
+    the frame-prop probe when a filter's measured behavior pins it (see
+    limit_filter)."""
+    fmt_out = clip.format
+    # reference compares bit depths only (src/helper.zig:322-324)
+    if depth_in == fmt_out.bits_per_sample:
+        return float(value)
+    fmt_in = fmt_out.replace(bits_per_sample=depth_in, sample_type=sample_type_in,
+                             subsampling_w=0, subsampling_h=0)
+    rng = clip.color_range() if color_range is None else color_range
+    in_peak = fmt_in.peak_value(chroma, rng)
+    in_low = fmt_in.lowest_value(chroma, rng)
+    out_peak = fmt_out.peak_value(chroma, rng)
+    out_low = fmt_out.lowest_value(chroma, rng)
+    out = float(value) * (out_peak - out_low) / (in_peak - in_low)
+    if fmt_out.sample_type is SampleType.INTEGER:
+        out = max(min(round(out), fmt_out.peak_value(False, ColorRange.FULL)), 0)
+    return float(out)
