@@ -2,7 +2,9 @@
 slice (BoxBlur, Limiter, Deband, CLAHE, EEDI3, XPSNR, SSIMULACRA2, Compress,
 Checkmate, CombMask, CombMaskMT, BilateralDither, MosquitoNR, Bilateral and
 the plain filters) on the card against the port's CPU path, the streaming
-runtime against resident calls, the launch counters, and the wrappers' input
+runtime against resident calls, ImageRead on the card against a CPU read,
+``run_sharded`` and ``process_stream`` over a two-entry mesh on cuda:0
+against resident calls, the launch counters, and the wrappers' input
 checks.  Every test here needs an NVIDIA GPU and skips
 without one.  This file imports no JAX (the card's machine has none), so it
 runs there on its own, without tests/conftest.py:
@@ -1667,3 +1669,101 @@ def test_streamed_frame_doubling_and_ragged_batch_on_card(cuda):
     assert sorted(chunks) == [0, 6, 12]
     assert _same(torch.from_numpy(whole()[0]), resident.cpu())
 
+
+
+# ---------------------------------------------------------------------------
+# ImageRead and the mesh on the card
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("kind", ["rgb48_paeth", "gray16_sub", "rgba32_avg"])
+def test_image_read_lands_on_the_card(cuda, tmp_path, kind):
+    from helpers import encode_png
+
+    rng = np.random.default_rng(7)
+    shape, dtype, gray, alpha, ft = {
+        "rgb48_paeth": ((33, 47, 3), np.uint16, False, False, 4),
+        "gray16_sub": ((20, 31, 1), np.uint16, True, False, 1),
+        "rgba32_avg": ((17, 29, 4), np.uint8, False, True, 3)}[kind]
+    img = rng.integers(0, np.iinfo(dtype).max + 1, shape).astype(dtype)
+    paths = []
+    for i in range(2):
+        p = tmp_path / f"{kind}{i}.png"
+        p.write_bytes(encode_png(img, gray=gray, alpha=alpha, filter_type=ft))
+        paths.append(str(p))
+    clip, aclip = vt.image_read(paths, alpha=True)
+    cpu, acpu = vt.image_read(paths, alpha=True, device="cpu")
+    assert clip.format == cpu.format and clip.props == cpu.props
+    for got, want in zip(clip.planes + aclip.planes, cpu.planes + acpu.planes):
+        assert got.device == torch.device("cuda", 0) and _same(got.cpu(), want)
+    for c in range(len(clip.planes)):
+        assert np.array_equal(clip.planes[c][1].cpu().numpy(), img[..., c])
+
+
+def test_frames_mesh_on_the_card(cuda):
+    from vszip_tpu_torch.parallel import frames_mesh
+
+    count = torch.cuda.device_count()
+    mesh = frames_mesh()
+    assert mesh.devices == tuple(torch.device("cuda", i) for i in range(count))
+    with pytest.raises(RuntimeError, match="visible"):
+        frames_mesh(count + 1)
+
+
+def _two_on_card0():
+    from vszip_tpu_torch.parallel import frames_mesh
+
+    return frames_mesh(devices=["cuda:0", "cuda:0"])
+
+
+@pytest.mark.parametrize("name,overlap", [("boxblur", 0), ("checkmate", 1),
+                                          ("checkmate_tthr2", 2), ("plane_average", 0)])
+def test_run_sharded_equals_resident_on_card(cuda, name, overlap):
+    from vszip_tpu_torch.parallel import run_sharded
+
+    op = {"boxblur": lambda c: vt.boxblur(c, hradius=13, vradius=13),
+          "checkmate": lambda c: vt.checkmate(c),
+          "checkmate_tthr2": lambda c: vt.checkmate(c, tthr2=10),
+          "plane_average": lambda c: vt.plane_average(c, planes=[0, 1, 2])}[name]
+    fmt, planes = _stream_frames("YUV420P8", 12, 64, 96, 8)
+    clip = vt.Clip.from_planes(planes, fmt, device=cuda)
+    want = op(clip)
+    got = run_sharded(op, clip, mesh=_two_on_card0(), overlap=overlap)
+    for g, w in zip(got.planes, want.planes):
+        assert g.is_cuda and _same(g, w)
+    assert set(got.props) == set(want.props)
+    for k, v in want.props.items():
+        assert _same(got.props[k], v) if isinstance(v, torch.Tensor) else got.props[k] == v
+
+
+def test_run_sharded_xpsnr_equals_resident_on_card(cuda):
+    from vszip_tpu_torch.parallel import run_sharded
+
+    fmt, ref_p = _stream_frames("YUV420P8", 12, 64, 128, 9)
+    rng = np.random.default_rng(10)
+    dist_p = tuple(np.clip(p.astype(np.int32) + rng.integers(-9, 9, p.shape), 0, 255)
+                   .astype(np.uint8) for p in ref_p)
+    ref, dist = (vt.Clip.from_planes(p, fmt, device=cuda) for p in (ref_p, dist_p))
+    want = vt.xpsnr(ref, dist, fps=24)
+    got = run_sharded(lambda r, d: vt.xpsnr(r, d, fps=24), ref, dist, mesh=_two_on_card0(),
+                      overlap=2)
+    for k in ("XPSNR_Y", "XPSNR_U", "XPSNR_V", "XPSNR_AVG", "_XPSNR_WSSE"):
+        assert got.props[k].is_cuda and _same(got.props[k], want.props[k]), k
+
+
+@pytest.mark.parametrize("batch", [4, 6, 13])
+def test_meshed_stream_equals_resident_on_card(cuda, batch):
+    """Chunks of 6 and 8 frames split over the two entries (checkmate runs
+    once more a plane for each), the others run whole on the first."""
+    fmt, planes = _stream_frames("YUV420P8", 13, 64, 96, 11)
+    resident = vt.checkmate(vt.Clip.from_planes(planes, fmt, device=cuda), tthr2=10)
+    sink, whole, chunks = _kept(fmt)
+    kk.reset_launches()
+    props = vt.process_stream(vt.ArraySource(planes, fmt),
+                              lambda c: vt.plane_average(vt.checkmate(c, tthr2=10)),
+                              batch=batch, overlap=2, sink=sink,
+                              mesh=_two_on_card0())
+    assert kk.LAUNCHES["checkmate"] > 3 * len(chunks) or batch == 13
+    for got, want in zip(whole(), resident.planes):
+        assert np.array_equal(got, want.cpu().numpy())
+    want = vt.plane_average(resident).props["psmAvg"].cpu().numpy()
+    assert np.array_equal(props["psmAvg"], want)

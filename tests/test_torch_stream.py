@@ -1,7 +1,8 @@
 """The port's streaming runtime on the CPU (``device="cpu"``): each test of
-tests/test_stream.py but the mesh one, with the port's streamed output held
-against the JAX package's resident output, plus the port's own surface
-(``mesh`` raises, a sink that keeps every chunk, no card for
+tests/test_stream.py but the mesh one (tests/test_torch_parallel.py holds
+that), with the port's streamed output held against the JAX package's
+resident output, plus the port's own surface (a ``mesh`` that is not a
+``frames_mesh`` raises, a sink that keeps every chunk, no card for
 ``device="cuda"``).
 
 Tolerances: planes bit-exact, per-frame props equal, XPSNR's average within
@@ -224,8 +225,10 @@ def test_streamed_non_multiple_frame_change_rejected(src):
 
 
 def test_mesh_raises(src):
-    with pytest.raises(vt.VSZipError, match="mesh is not supported"):
-        vt.process_stream(src, lambda c: c, mesh=object(), **CPU)
+    """``mesh`` takes a ``parallel.frames_mesh``; anything else raises."""
+    for mesh in (object(), ["cpu", "cpu"]):
+        with pytest.raises(vt.VSZipError, match="mesh must be a parallel.frames_mesh"):
+            vt.process_stream(src, lambda c: c, mesh=mesh)
 
 
 @pytest.mark.skipif(torch.cuda.is_available(), reason="checks the error without a card")

@@ -7,8 +7,11 @@ LimitFilter, CLAHE, EEDI3/EEDI3H, Compress, Checkmate, CombMask, CombMaskMT,
 MosquitoNR, AdaptiveBinarize, PackRGB, RFS, ColorMap, and the metrics
 PlaneAverage, PlaneMinMax, XPSNR and SSIMULACRA2) with the same arguments,
 validation messages and results, the format conversions ``bit_depth``,
-``resize``, ``to_rgbs`` and ``srgb_to_linear``, and the streaming runtime
-(``ArraySource``, ``SyntheticSource``, ``process_stream``).  Integer
+``resize``, ``to_rgbs`` and ``srgb_to_linear``, the streaming runtime
+(``ArraySource``, ``SyntheticSource``, ``process_stream``, with ``mesh=``
+to split chunks over several devices), ImageRead (``image_read``) and frame
+sharding (``parallel``: ``frames_mesh``, ``shard_clip``, ``replicate_clip``,
+``run_sharded``).  Integer
 BoxBlur, Deband, 8-bit CLAHE, EEDI3, Compress, Checkmate, CombMask,
 BilateralDither, XPSNR's block statistics and SSIMULACRA2's per-scale sums
 run hand-written CUDA
@@ -28,11 +31,13 @@ from .core.format import (
 )
 from .core.params import VSZipError
 from .core.resample import bit_depth, resize, srgb_to_linear, to_rgbs
+from .io import image_read
 from .ops import (adaptive_binarize, bilateral, bilateral_dither, boxblur, checkmate, clahe,
                   colormap, comb_mask, comb_mask_mt, compress, deband, eedi3, eedi3h,
                   limit_filter, limiter, mosquito_nr, packrgb, plane_average, plane_minmax, rfs,
                   ssimulacra2, xpsnr)
 from .runtime.stream import ArraySource, SyntheticSource, process_stream
+from . import parallel
 
 __all__ = [
     "Clip",
@@ -49,6 +54,7 @@ __all__ = [
     "resize",
     "srgb_to_linear",
     "to_rgbs",
+    "image_read",
     "adaptive_binarize",
     "bilateral",
     "bilateral_dither",
@@ -74,6 +80,7 @@ __all__ = [
     "ArraySource",
     "SyntheticSource",
     "process_stream",
+    "parallel",
 ]
 
 __version__ = "0.1.0"

@@ -3,22 +3,23 @@
 Every library is one source file compiled into a shared library with a plain
 C interface and loaded with ``ctypes``:
 
-====================  =================================  =====================
-library               source                             compiler
-====================  =================================  =====================
-``boxblur``           ``csrc/boxblur.cu``                nvcc (``sm_90a``)
-``deband``            ``csrc/deband.cu``                 nvcc (``sm_90a``)
-``clahe``             ``csrc/clahe.cu``                  nvcc (``sm_90a``)
-``eedi3``             ``csrc/eedi3.cu``                  nvcc (``sm_90a``)
-``xpsnr``             ``csrc/xpsnr.cu``                  nvcc (``sm_90a``)
-``ssim``              ``csrc/ssim.cu``                   nvcc (``sm_90a``)
-``bilateral_dither``  ``csrc/bilateral_dither.cu``       nvcc (``sm_90a``)
-``compress``          ``csrc/compress.cu``               nvcc (``sm_90a``)
-``checkmate``         ``csrc/checkmate.cu``              nvcc (``sm_90a``)
-``comb_mask``         ``csrc/comb_mask.cu``              nvcc (``sm_90a``)
-``deband_rng``        ``runtime/native/deband_rng.cpp``  g++
-``dither``            ``runtime/native/dither.cpp``      g++
-====================  =================================  =====================
+====================  ===================================  =====================
+library               source                               compiler
+====================  ===================================  =====================
+``boxblur``           ``csrc/boxblur.cu``                  nvcc (``sm_90a``)
+``deband``            ``csrc/deband.cu``                   nvcc (``sm_90a``)
+``clahe``             ``csrc/clahe.cu``                    nvcc (``sm_90a``)
+``eedi3``             ``csrc/eedi3.cu``                    nvcc (``sm_90a``)
+``xpsnr``             ``csrc/xpsnr.cu``                    nvcc (``sm_90a``)
+``ssim``              ``csrc/ssim.cu``                     nvcc (``sm_90a``)
+``bilateral_dither``  ``csrc/bilateral_dither.cu``         nvcc (``sm_90a``)
+``compress``          ``csrc/compress.cu``                 nvcc (``sm_90a``)
+``checkmate``         ``csrc/checkmate.cu``                nvcc (``sm_90a``)
+``comb_mask``         ``csrc/comb_mask.cu``                nvcc (``sm_90a``)
+``deband_rng``        ``runtime/native/deband_rng.cpp``    g++
+``dither``            ``runtime/native/dither.cpp``        g++
+``png_unfilter``      ``runtime/native/png_unfilter.cpp``  g++
+====================  ===================================  =====================
 
 Libraries go to ``build/vszip_tpu_torch/<name>_<hash>.so`` at the root of
 the checkout, keyed by a hash of the source and the flags, never beside the
@@ -66,6 +67,7 @@ LIBRARIES = {
     "comb_mask": ("csrc/comb_mask.cu", ()),
     "deband_rng": ("runtime/native/deband_rng.cpp", ()),
     "dither": ("runtime/native/dither.cpp", ()),
+    "png_unfilter": ("runtime/native/png_unfilter.cpp", ()),
 }
 
 # seconds from the start of a build() call until each library's compiler

@@ -58,6 +58,9 @@
 #include <stdint.h>
 
 #include <algorithm>
+#include <mutex>
+#include <utility>
+#include <vector>
 
 namespace {
 
@@ -325,18 +328,34 @@ __global__ void __launch_bounds__(kThreads, 2)
   }
 }
 
+// Blocks of kThreads of this instantiation that an SM of device `dev`
+// holds, queried once per device (cards of a mesh may differ).
+template <bool kJpeg, bool kWide, bool kVec>
+cudaError_t resident_blocks(int dev, int* blocks) {
+  static std::mutex mu;
+  static std::vector<std::pair<int, int>> seen;  // (device, blocks)
+  std::lock_guard<std::mutex> lock(mu);
+  for (const auto& d : seen) {
+    if (d.first == dev) {
+      *blocks = d.second;
+      return cudaSuccess;
+    }
+  }
+  const cudaError_t e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+      blocks, compress_kernel<kJpeg, kWide, kVec>, kThreads, 0);
+  if (e != cudaSuccess) return e;
+  seen.emplace_back(dev, *blocks);
+  return cudaSuccess;
+}
+
 template <bool kJpeg, bool kWide, bool kVec>
 int launch(const uint8_t* x, uint8_t* out, int n, int h, int w, int dc_prec,
            const Tables& tab, cudaStream_t s) {
-  static int resident = 0;  // blocks of kThreads an SM holds
-  if (resident == 0) {
-    cudaError_t e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-        &resident, compress_kernel<kJpeg, kWide, kVec>, kThreads, 0);
-    if (e != cudaSuccess) return (int)e;
-  }
-  int dev = 0, sms = 0;
-  cudaGetDevice(&dev);
-  cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  int dev = 0, sms = 0, resident = 0;
+  cudaError_t e = cudaGetDevice(&dev);
+  if (e == cudaSuccess) e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (e == cudaSuccess) e = resident_blocks<kJpeg, kWide, kVec>(dev, &resident);
+  if (e != cudaSuccess) return (int)e;
   const long long xblocks = ((long long)((w + 7) / 8) * ((h + 7) / 8) + kThreads - 1) / kThreads;
   if (xblocks > 0x7fffffffLL) return (int)cudaErrorInvalidConfiguration;
   // frame groups: as many as fill the resident blocks in one wave

@@ -23,8 +23,16 @@ On the card the host-to-device copies are double-buffered:
 
 On the CPU (``device="cpu"``) the same loop runs with plain copies.
 ``donate=True`` releases the chunk's input tensors as soon as its op has
-run.  ``mesh`` (sharding a chunk over several devices) is not ported: a call
-with ``mesh`` set raises.
+run.
+
+With ``mesh`` (``parallel.frames_mesh``) a chunk whose frame count, halo
+included, divides the mesh is split into equal spans, one per mesh entry;
+each entry's device gets its span plus ``overlap`` frames of the chunk on
+either side, by its own copy stream from the one pinned ring, runs the op and
+trims that halo, and the spans are put back together on the mesh's first
+device (``parallel.mesh.gather``) before the chunk is read back as above.  A
+chunk that does not divide (the tail) runs whole on the first device.  As in
+the JAX package, the result is the same either way.
 
 ``STATS`` holds the last call's host time spent filling the staging buffers,
 the bytes sent to the device and, on the card, CUDA events around each
@@ -106,20 +114,21 @@ def _trim(arr, lead: int, tail: int):
 
 
 class _Loader:
-    """Puts chunks of `source` on `device`: through a ring of two pinned
-    staging buffers and a copy stream on the card, by plain copies on the
-    CPU."""
+    """Puts chunks of `source` on the mesh's devices (`devices`, one entry
+    per shard; a device may repeat): through a ring of two pinned staging
+    buffers and one copy stream per entry on the card, by plain copies on
+    the CPU."""
 
-    def __init__(self, source, device: torch.device, max_frames: int):
+    def __init__(self, source, devices: tuple, max_frames: int):
         self.source = source
-        self.device = device
-        self.cuda = device.type == "cuda"
+        self.devices = devices
+        self.cuda = devices[0].type == "cuda"
         self.max_frames = max_frames
         self.ring = None
-        self.done = [None, None]
+        self.done = [[], []]
         self.count = 0
         if self.cuda:
-            self.copy_stream = torch.cuda.Stream(device)
+            self.copy_streams = [torch.cuda.Stream(d) for d in devices]
 
     def _staging(self, host):
         """The ring's two sets of pinned buffers, one per plane, allocated at
@@ -128,59 +137,71 @@ class _Loader:
         return [[torch.empty((self.max_frames,) + tuple(p.shape[1:]), dtype=dtype,
                              pin_memory=True) for p in host] for _ in range(2)]
 
-    def load(self, lo: int, hi: int):
-        """The chunk [lo, hi) on the device, as a tuple of plane tensors, and
+    def load(self, lo: int, hi: int, parts: list):
+        """The chunk [lo, hi) as `parts`, (mesh entry, start, stop) ranges of
+        its frames: for each part its plane tensors on the entry's device and
         (on the card) the event its copy records."""
         host = self.source(lo, hi)
         t0 = time.perf_counter()
         if not self.cuda:
-            planes = tuple(_host_tensor(p).clone() for p in host)
+            src = [_host_tensor(p) for p in host]
+            loaded = [(tuple(t[a:b].clone() for t in src), None) for _, a, b in parts]
             STATS["fill_s"] += time.perf_counter() - t0
-            STATS["h2d_bytes"] += sum(p.nbytes for p in host)
-            return planes, None
+            STATS["h2d_bytes"] += sum(t[a:b].nbytes for _, a, b in parts for t in src)
+            return loaded
         if self.ring is None:
             self.ring = self._staging(host)
         slot = self.count % 2
         self.count += 1
-        if self.done[slot] is not None:
-            self.done[slot].synchronize()  # the buffer's last copy has read it
+        for done in self.done[slot]:
+            done.synchronize()  # the buffer's last copies have read it
         staged = []
         for buf, p in zip(self.ring[slot], host):
             view = buf[: hi - lo]
             _fill(view, p)
             staged.append(view)
         STATS["fill_s"] += time.perf_counter() - t0
-        STATS["h2d_bytes"] += sum(v.numel() * v.element_size() for v in staged)
-        start = torch.cuda.Event(enable_timing=True)
-        done = torch.cuda.Event(enable_timing=True)
-        with torch.cuda.stream(self.copy_stream):
-            start.record(self.copy_stream)
-            planes = tuple(v.to(self.device, non_blocking=True) for v in staged)
-            done.record(self.copy_stream)
-        self.done[slot] = done
-        STATS["copies"].append((start, done))
-        return planes, done
+        loaded, self.done[slot] = [], []
+        for entry, a, b in parts:
+            stream = self.copy_streams[entry]
+            start = torch.cuda.Event(enable_timing=True)
+            done = torch.cuda.Event(enable_timing=True)
+            with torch.cuda.stream(stream):
+                start.record(stream)
+                planes = tuple(v[a:b].to(self.devices[entry], non_blocking=True)
+                               for v in staged)
+                done.record(stream)
+            STATS["h2d_bytes"] += sum(t.numel() * t.element_size() for t in planes)
+            STATS["copies"].append((start, done))
+            self.done[slot].append(done)
+            loaded.append((planes, done))
+        return loaded
 
 
 def process_stream(source, op, *, batch: int = 32, overlap: int = 0,
                    sink: Callable[[int, Clip], None] | None = None,
-                   donate: bool = True, mesh=None, device="cuda") -> dict:
+                   donate: bool = True, mesh=None, device=None) -> dict:
     """Stream ``source`` through ``op`` in ``batch``-frame chunks.
 
     source: ``ArraySource``/``SyntheticSource`` or any object with
         ``num_frames``, ``format``, ``props`` and ``(start, stop) ->
         tuple[np.ndarray per plane]``.
-    op: a ``Clip -> Clip`` function, run on each chunk on `device`.
+    op: a ``Clip -> Clip`` function, run on each chunk (or span of a chunk)
+        on the device its planes lie on.
     overlap: temporal halo fed to each chunk on both sides and trimmed
-        from its outputs (set to the op's temporal radius).
+        from its outputs (set to the op's temporal radius); over a mesh,
+        each span of a chunk gets the same halo.
     sink: called as ``sink(frame_index, chunk_clip_numpy)`` for every
         output chunk, in output-frame units; its planes are fresh NumPy
         arrays and its props host copies (per-frame ones trimmed like the
         planes), without the streaming-internal props.  When None, plane
         data is dropped and only per-frame props (metrics) are accumulated.
     donate: release each chunk's input tensors once its op has run.
-    mesh: not ported (multi-device sharding); must be None.
-    device: where the op runs, ``"cuda"`` (default) or ``"cpu"``.
+    mesh: optional ``parallel.frames_mesh(...)``: chunks whose frame count
+        (halo included) divides the mesh are split over its devices, the
+        others run on its first device; the result is the same either way.
+    device: where the op runs without a mesh, ``"cuda"`` (default) or
+        ``"cpu"``; with a mesh, leave it out (the mesh names the devices).
 
     Returns a dict of accumulated per-frame props (each a (num_frames, ...)
     NumPy array for array-valued props, else the last scalar value).
@@ -192,11 +213,21 @@ def process_stream(source, op, *, batch: int = 32, overlap: int = 0,
     if batch <= 0 or overlap < 0:
         raise VSZipError("process_stream: batch must be > 0, overlap >= 0.")
     if mesh is not None:
-        raise VSZipError(
-            "process_stream: mesh is not supported by the PyTorch port yet "
-            "(multi-device sharding is not ported); pass mesh=None.")
-    dev = torch.device(device)
-    if dev.type == "cuda" and not torch.cuda.is_available():
+        from ..parallel import mesh as pm
+
+        if not isinstance(mesh, pm.Mesh):
+            raise VSZipError("process_stream: mesh must be a parallel.frames_mesh(...) "
+                             f"mesh, not {type(mesh).__name__}.")
+        if device is not None:
+            raise VSZipError("process_stream: pass device or mesh, not both (a mesh names "
+                             "its devices).")
+        if len({d.type for d in mesh.devices}) != 1:
+            raise VSZipError("process_stream: a mesh's devices must be all CUDA devices "
+                             "or all the CPU.")
+        devices = mesh.devices
+    else:
+        devices = (torch.device("cuda" if device is None else device),)
+    if devices[0].type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError(
             "process_stream: device='cuda' but no CUDA device is available; "
             "pass device='cpu' to stream on the CPU.")
@@ -204,52 +235,64 @@ def process_stream(source, op, *, batch: int = 32, overlap: int = 0,
     STATS.clear()
     STATS.update(fill_s=0.0, h2d_bytes=0, copies=[], computes=[])
     starts = list(range(0, n, batch))
-    loader = _Loader(source, dev, min(n, batch + 2 * overlap))
-    compute = torch.cuda.current_stream(dev) if loader.cuda else None
+    loader = _Loader(source, devices, min(n, batch + 2 * overlap))
     prop_chunks: dict[str, list] = {}
     prop_scalars: dict[str, object] = {}
 
     def load(start: int):
-        """The chunk [start-overlap, start+batch+overlap) on the device."""
+        """The chunk [start-overlap, start+batch+overlap) on the devices, as
+        (mesh entry, planes, copy event, halo frames before, after) per span."""
         lo = max(0, start - overlap)
         hi = min(n, start + batch + overlap)
-        planes, event = loader.load(lo, hi)
-        return (Clip(planes, fmt, dict(source.props)), start - lo,
-                hi - min(n, start + batch), event)
+        k = len(devices)
+        if k > 1 and (hi - lo) % k == 0:
+            span = (hi - lo) // k
+            cores = [(e * span, (e + 1) * span) for e in range(k)]
+            parts = [(e, max(0, a - overlap), min(hi - lo, b + overlap))
+                     for e, (a, b) in enumerate(cores)]
+        else:
+            cores = [(0, hi - lo)]
+            parts = [(0, 0, hi - lo)]
+        loaded = loader.load(lo, hi, parts)
+        spans = [(e, planes, event, a - pa, pb - b)
+                 for (e, pa, pb), (a, b), (planes, event) in zip(parts, cores, loaded)]
+        return spans, hi - lo, start - lo, hi - min(n, start + batch)
 
     pending = None   # (start, out_clip, lead, tail) awaiting readback
     nxt = load(starts[0])
     for idx, start in enumerate(starts):
-        clip, lead, tail, event = nxt
+        spans, in_frames, lead, tail = nxt
         nxt = None
-        in_frames = clip.planes[0].shape[0]
-        if loader.cuda:
-            compute.wait_event(event)
-            for p in clip.planes:
-                p.record_stream(compute)
-            began = torch.cuda.Event(enable_timing=True)
-            ended = torch.cuda.Event(enable_timing=True)
-            began.record(compute)
-        out = op(clip)
-        if loader.cuda:
-            ended.record(compute)
-            STATS["computes"].append((began, ended))
-        if donate:
-            del clip
-        out_frames = out.planes[0].shape[0]
-        m = 1
-        if out_frames != in_frames:
-            # frame-count-changing ops (EEDI3/EEDI3H field=2/3 double the
-            # rate: input frame i -> output frames m*i .. m*i+m-1, a
-            # contiguous run, so halo trimming scales by m).  Non-multiple
-            # changes (trims, arbitrary selectors) can't be chunk-trimmed.
-            if out_frames % in_frames:
-                raise VSZipError(
-                    "process_stream: op changed the chunk frame count "
-                    f"{in_frames} -> {out_frames} (not an integer "
-                    "multiple); this op cannot be streamed in chunks.")
-            m = out_frames // in_frames
-            lead, tail = m * lead, m * tail
+        pieces = []
+        for entry, planes, event, before, after in spans:
+            clip = Clip(planes, fmt, dict(source.props))
+            if loader.cuda:
+                compute = torch.cuda.current_stream(devices[entry])
+                compute.wait_event(event)
+                for p in planes:
+                    p.record_stream(compute)
+                began = torch.cuda.Event(enable_timing=True)
+                ended = torch.cuda.Event(enable_timing=True)
+                began.record(compute)
+            out = op(clip)
+            if loader.cuda:
+                ended.record(compute)
+                STATS["computes"].append((began, ended))
+            if donate:
+                del clip
+            pieces.append((out, before, after, planes[0].shape[0]))
+            del planes, out
+        del spans
+        if len(pieces) == 1:
+            out = pieces[0][0]
+        else:
+            out = pm.gather(pieces, devices[0], "process_stream")
+        del pieces
+        # frame-count-changing ops (EEDI3/EEDI3H field=2/3 double the rate:
+        # input frame i -> output frames m*i .. m*i+m-1, a contiguous run,
+        # so halo trimming scales by m)
+        m = _multiplier(in_frames, out.planes[0].shape[0], "process_stream")
+        lead, tail = m * lead, m * tail
         if idx + 1 < len(starts):
             nxt = load(starts[idx + 1])      # H2D overlaps the compute
         if pending is not None:
@@ -264,27 +307,46 @@ def process_stream(source, op, *, batch: int = 32, overlap: int = 0,
     props: dict = dict(prop_scalars)
     for k, chunks in prop_chunks.items():
         props[k] = np.concatenate(chunks)
-    _finalize_aggregates(props, dev)
+    _finalize_aggregates(props, devices[0])
     return props
 
 
-def _finalize_aggregates(props: dict, device: torch.device) -> None:
-    """Recompute end-of-run aggregate props from accumulated per-frame
-    state.  Scalar props otherwise keep the LAST chunk's value, which for
-    metrics whose aggregate spans all frames (XPSNR's average — reference
+def _multiplier(in_frames: int, out_frames: int, who: str) -> int:
+    """How many output frames an op gave per input frame: 1, or the integer
+    multiple of a frame-count-changing op.  Non-multiple changes (trims,
+    arbitrary selectors) can't be chunk-trimmed."""
+    if out_frames % in_frames:
+        raise VSZipError(
+            f"{who}: op changed the chunk frame count "
+            f"{in_frames} -> {out_frames} (not an integer "
+            "multiple); this op cannot be streamed in chunks.")
+    return out_frames // in_frames
+
+
+def aggregates(props: dict) -> dict:
+    """End-of-run aggregate props recomputed from accumulated per-frame
+    state (tensors), on the state's device.  Scalar props otherwise keep the
+    LAST chunk's (or span's) value, which for metrics whose aggregate spans
+    all frames (XPSNR's average — reference
     src/vapoursynth/xpsnr.zig:89-96,114-128) would silently report only the
     final chunk.  Ops opt in by attaching an ``_<OP>_AggMeta`` scalar prop
     plus whatever per-frame arrays their finalizer needs; the recompute runs
-    the op's own aggregate math on the stream's device, so a streamed run
-    equals a resident one."""
+    the op's own aggregate math, so a streamed or sharded run equals a
+    resident one.  Shared by ``process_stream`` and ``parallel.run_sharded``."""
     if "_XPSNR_WSSE" in props:
         from ..ops.xpsnr import _prop_math
 
-        wsse = props.pop("_XPSNR_WSSE")
-        num64 = props.pop("_XPSNR_Num64")
-        _, avg = _prop_math(torch.from_numpy(wsse).to(device),
-                            torch.from_numpy(np.asarray(num64)).to(device))
-        props["XPSNR_AVG"] = avg.cpu().numpy()
+        _, avg = _prop_math(props["_XPSNR_WSSE"], props["_XPSNR_Num64"])
+        return {"XPSNR_AVG": avg}
+    return {}
+
+
+def _finalize_aggregates(props: dict, device: torch.device) -> None:
+    """Replace a stream's accumulated aggregate state (host arrays) by the
+    aggregates (``aggregates``, run on the stream's device), as host arrays."""
+    state = {k: torch.from_numpy(np.asarray(props.pop(k))).to(device)
+             for k in _INTERNAL_PROPS if k in props}
+    props.update({k: v.cpu().numpy() for k, v in aggregates(state).items()})
 
 
 # props that are constant metadata for the aggregate finalizers: never
@@ -295,6 +357,23 @@ _SCALAR_PROPS = frozenset({"_XPSNR_Num64"})
 # are stripped from the clips handed to sinks (sinks see only the
 # reference's public prop surface)
 _INTERNAL_PROPS = frozenset({"_XPSNR_WSSE", "_XPSNR_Num64"})
+
+
+def per_frame(key: str, value, frames: int) -> bool:
+    """Whether prop `key` holds one entry per frame of a `frames`-frame
+    clip (an array or tensor whose first axis is the frames), as opposed to
+    a per-clip value."""
+    return (key not in _SCALAR_PROPS and hasattr(value, "shape")
+            and getattr(value, "ndim", 0) >= 1 and value.shape[0] == frames)
+
+
+def trim(clip: Clip, lead: int, tail: int) -> Clip:
+    """`clip` without its first `lead` and last `tail` frames, per-frame
+    props trimmed alike (views; nothing is copied)."""
+    frames = clip.planes[0].shape[0]
+    props = {k: _trim(v, lead, tail) if per_frame(k, v, frames) else v
+             for k, v in clip.props.items()}
+    return Clip(tuple(_trim(p, lead, tail) for p in clip.planes), clip.format, props)
 
 
 def _host(v):
@@ -309,16 +388,15 @@ def _drain(pending, sink, prop_chunks, prop_scalars):
     host arrays, its per-frame props trimmed of the halo."""
     start, out, lead, tail = pending
     frames = out.planes[0].shape[0]
-    host_planes = tuple(_trim(p, lead, tail).to("cpu", copy=True).numpy()
-                        for p in out.planes) if sink is not None else None
+    kept = trim(out, lead, tail)
+    host_planes = tuple(p.to("cpu", copy=True).numpy()
+                        for p in kept.planes) if sink is not None else None
     sink_props = {}
-    for k, v in out.props.items():
-        if k not in _SCALAR_PROPS and hasattr(v, "shape") \
-                and getattr(v, "ndim", 0) >= 1 and v.shape[0] == frames:
-            h = _host(_trim(v, lead, tail))
+    for k, v in kept.props.items():
+        h = _host(v)
+        if per_frame(k, out.props[k], frames):
             prop_chunks.setdefault(k, []).append(h)
         else:
-            h = _host(v)
             prop_scalars[k] = h
         if k not in _INTERNAL_PROPS:
             sink_props[k] = h
