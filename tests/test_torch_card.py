@@ -260,6 +260,37 @@ def test_boxblur_on_card_matches_cpu(cuda, args):
         assert g.is_cuda and _same(g.cpu(), w)
 
 
+def test_a_profiled_boxblur_call_shows_its_ranges_and_no_extra_device_work(cuda):
+    """Under ``torch.profiler`` a BoxBlur r13 call on 1080p YUV420P16 shows the
+    program's range by name on the host's side and runs the kernels it runs
+    without them (B1's two a plane): no ``vszip.`` range is device work, and
+    every kernel starts after the ``vszip.op.boxblur`` range opens."""
+    rng = np.random.default_rng(9)
+    fmt = vt.get_format("YUV420P16")
+    planes = [rng.integers(0, 1 << 16, (4,) + fmt.plane_dims(1920, 1080, p)[::-1],
+                           dtype=np.uint16) for p in range(3)]
+    clip = vt.Clip.from_planes(planes, fmt, device=cuda)
+    vt.boxblur(clip, hradius=13, vradius=13)   # builds and warms up outside the trace
+    torch.cuda.synchronize()
+    kb.reset_launches()
+    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        vt.boxblur(clip, hradius=13, vradius=13)
+        torch.cuda.synchronize()
+    ranges, device = {}, []
+    for ev in prof.profiler.kineto_results.events():
+        if ev.device_type() == torch.autograd.DeviceType.CUDA:
+            device.append(ev)
+        elif ev.name().startswith("vszip."):
+            ranges.setdefault(ev.name(), []).append(ev.start_ns())
+    # the op's range alone: the finer spans are collected, never profiled
+    assert {k: len(v) for k, v in ranges.items()} == {"vszip.op.boxblur": 1}
+    assert not any(ev.name().startswith("vszip.") for ev in device)
+    kernels = [ev for ev in device if not ev.is_user_annotation()]
+    assert kb.LAUNCHES["ct_blur_int"] == 3 and len(kernels) == 6
+    assert min(k.start_ns() for k in kernels) > ranges["vszip.op.boxblur"][0]
+
+
 def test_wrappers_reject_what_kernels_do_not_take(cuda):
     x = _rand((2, 32, 48), torch.uint16, cuda)
     with pytest.raises(ValueError, match="contiguous"):

@@ -11,7 +11,11 @@ validation messages and results, the format conversions ``bit_depth``,
 (``ArraySource``, ``SyntheticSource``, ``process_stream``, with ``mesh=``
 to split chunks over several devices), ImageRead (``image_read``) and frame
 sharding (``parallel``: ``frames_mesh``, ``shard_clip``, ``replicate_clip``,
-``run_sharded``).  Integer
+``run_sharded``), and ``trace``: spans at the ops', kernel wrappers' and
+``process_stream``'s boundaries, recorded under ``trace.collect()`` (the
+op and stream spans also under a running ``torch.profiler``) and free
+otherwise, and the launch counters.
+Integer
 BoxBlur, Deband, 8-bit CLAHE, EEDI3, Compress, Checkmate, CombMask,
 BilateralDither, XPSNR's block statistics and SSIMULACRA2's per-scale sums
 run hand-written CUDA
@@ -37,7 +41,7 @@ from .ops import (adaptive_binarize, bilateral, bilateral_dither, boxblur, check
                   limit_filter, limiter, mosquito_nr, packrgb, plane_average, plane_minmax, rfs,
                   ssimulacra2, xpsnr)
 from .runtime.stream import ArraySource, SyntheticSource, process_stream
-from . import parallel
+from . import parallel, trace
 
 __all__ = [
     "Clip",
@@ -81,6 +85,7 @@ __all__ = [
     "SyntheticSource",
     "process_stream",
     "parallel",
+    "trace",
 ]
 
 __version__ = "0.1.0"

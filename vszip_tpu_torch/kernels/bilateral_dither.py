@@ -42,11 +42,11 @@ from functools import lru_cache
 import torch
 from torch.utils.weak import WeakIdKeyDictionary
 
-from .. import _build
+from .. import _build, trace
 
 # Launches made on the CUDA path.  Each wrapper adds one where it launches
 # its kernel and nowhere else; the plain versions never count.
-LAUNCHES = {"dense_blur": 0, "subspl_blur": 0}
+LAUNCHES = trace.register_launches({"dense_blur": 0, "subspl_blur": 0})
 
 NBR_POINT_LISTS = 23
 _DTYPES = (torch.uint8, torch.uint16, torch.float32)
@@ -211,6 +211,7 @@ def _subspl_band(x: torch.Tensor, ref: torch.Tensor | None, r: int,
 # wrappers
 # ---------------------------------------------------------------------------
 
+@trace.spanned("vszip.kernel.dense_blur", profiled=False)
 def dense_blur(x: torch.Tensor, ref: torch.Tensor | None, r: int, m: float, wmax: float,
                swmin: float, peak: float) -> torch.Tensor:
     """The dense (2r-1)^2 window (B17); (N, H, W) uint8, uint16 or float32,
@@ -227,6 +228,7 @@ def dense_blur(x: torch.Tensor, ref: torch.Tensor | None, r: int, m: float, wmax
     return out
 
 
+@trace.spanned("vszip.kernel.subspl_blur", profiled=False)
 def subspl_blur(x: torch.Tensor, ref: torch.Tensor | None, r: int, start: torch.Tensor,
                 dyx: torch.Tensor, m: float, wmax: float, swmin: float,
                 peak: float) -> torch.Tensor:

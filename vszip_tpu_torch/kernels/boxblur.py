@@ -53,12 +53,12 @@ from functools import lru_cache
 
 import torch
 
-from .. import _build
+from .. import _build, trace
 
 # Launches made on the CUDA path, per wrapper.  Each wrapper adds one where
 # it launches its kernel(s) and nowhere else; the plain versions never count.
-LAUNCHES = {"ct_blur_int": 0, "rt_blur_h": 0, "rt_blur_v_multi": 0,
-            "rt_blur_v": 0}
+LAUNCHES = trace.register_launches({"ct_blur_int": 0, "rt_blur_h": 0, "rt_blur_v_multi": 0,
+                                    "rt_blur_v": 0})
 
 
 def reset_launches() -> None:
@@ -276,6 +276,7 @@ def _h_fixed(x: torch.Tensor, radius: int, passes: int) -> torch.Tensor:
 # wrappers
 # ---------------------------------------------------------------------------
 
+@trace.spanned("vszip.kernel.ct_blur_int", profiled=False)
 def ct_blur_int(x: torch.Tensor, radius: int) -> torch.Tensor:
     """Comptime integer BoxBlur, one pass each axis (B1), r <= 897 (the
     ring of ``ct_v_chip``, on either device)."""
@@ -289,6 +290,7 @@ def ct_blur_int(x: torch.Tensor, radius: int) -> torch.Tensor:
     return out
 
 
+@trace.spanned("vszip.kernel.rt_blur_h", profiled=False)
 def rt_blur_h(x: torch.Tensor, radius: int, passes: int = 1) -> torch.Tensor:
     """`passes` runtime horizontal passes in one launch (B2)."""
     if x.device.type == "cpu":
@@ -299,6 +301,7 @@ def rt_blur_h(x: torch.Tensor, radius: int, passes: int = 1) -> torch.Tensor:
     return out
 
 
+@trace.spanned("vszip.kernel.rt_blur_v_multi", profiled=False)
 def rt_blur_v_multi(x: torch.Tensor, radius: int, passes: int) -> torch.Tensor:
     """`passes` runtime vertical passes in one launch (B3)."""
     if x.device.type == "cpu":
@@ -309,6 +312,7 @@ def rt_blur_v_multi(x: torch.Tensor, radius: int, passes: int) -> torch.Tensor:
     return out
 
 
+@trace.spanned("vszip.kernel.rt_blur_v", profiled=False)
 def rt_blur_v(x: torch.Tensor, radius: int) -> torch.Tensor:
     """One runtime vertical pass (B4)."""
     if x.device.type == "cpu":

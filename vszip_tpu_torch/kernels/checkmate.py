@@ -27,11 +27,11 @@ from functools import lru_cache
 
 import torch
 
-from .. import _build
+from .. import _build, trace
 
 # Launches made on the CUDA path.  The wrapper adds one where it launches its
 # kernel and nowhere else; the plain version never counts.
-LAUNCHES = {"checkmate": 0}
+LAUNCHES = trace.register_launches({"checkmate": 0})
 
 
 def reset_launches() -> None:
@@ -116,6 +116,7 @@ def _check(x: torch.Tensor, thr: int, tmax: int, tthr2: int) -> None:
 # wrapper
 # ---------------------------------------------------------------------------
 
+@trace.spanned("vszip.kernel.checkmate", profiled=False)
 def checkmate(x: torch.Tensor, thr: int, tmax: int, tthr2: int) -> torch.Tensor:
     """Checkmate's temporal + spatial reducer over the whole clip (B15);
     (N, H, W) uint8."""

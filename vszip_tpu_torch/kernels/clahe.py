@@ -35,11 +35,11 @@ from functools import lru_cache
 
 import torch
 
-from .. import _build
+from .. import _build, trace
 
 # Launches made on the CUDA path.  The wrapper adds one where it launches its
 # kernel and nowhere else; the plain version never counts.
-LAUNCHES = {"clahe8_lookup": 0}
+LAUNCHES = trace.register_launches({"clahe8_lookup": 0})
 HIST = 256
 CHUNK = 16  # bytes of a row a thread owns (csrc/clahe.cu kChunk)
 MAX_THREADS = 512  # a block's threads at most (kMaxThreads checks it)
@@ -156,6 +156,7 @@ def _check(x, tab32, ya, xa, tile_h, tile_w) -> tuple[int, int]:
 # wrapper
 # ---------------------------------------------------------------------------
 
+@trace.spanned("vszip.kernel.clahe8_lookup", profiled=False)
 def clahe8_lookup(x: torch.Tensor, tab32: torch.Tensor, ya: torch.Tensor,
                   xa: torch.Tensor, tile_h: int, tile_w: int) -> torch.Tensor:
     """CLAHE's 8-bit 4-LUT bilinear blend (B7); (n, h, w) uint8."""

@@ -25,11 +25,11 @@ from functools import lru_cache
 
 import torch
 
-from .. import _build
+from .. import _build, trace
 
 # Launches made on the CUDA path.  The wrapper adds one where it launches its
 # kernel and nowhere else; the plain version never counts.
-LAUNCHES = {"comb_mask": 0}
+LAUNCHES = trace.register_launches({"comb_mask": 0})
 
 
 def reset_launches() -> None:
@@ -120,6 +120,7 @@ def _check(x: torch.Tensor, cthresh: int, mthresh: int) -> None:
 # wrapper
 # ---------------------------------------------------------------------------
 
+@trace.spanned("vszip.kernel.comb_mask", profiled=False)
 def comb_mask(x: torch.Tensor, cthresh: int, mthresh: int, metric_1: bool,
               expand: bool) -> torch.Tensor:
     """CombMask's mask of one plane over the whole clip (B16); (N, H, W)

@@ -29,11 +29,11 @@ from functools import lru_cache
 import numpy as np
 import torch
 
-from .. import _build
+from .. import _build, trace
 
 # Launches made on the CUDA path.  The wrapper adds one where it launches its
 # kernel and nowhere else; the plain version never counts.
-LAUNCHES = {"compress_plane": 0}
+LAUNCHES = trace.register_launches({"compress_plane": 0})
 TABLE = 64
 
 
@@ -281,6 +281,7 @@ def _check(x: torch.Tensor, dc_prec: int) -> None:
 # wrapper
 # ---------------------------------------------------------------------------
 
+@trace.spanned("vszip.kernel.compress_plane", profiled=False)
 def compress_plane(x: torch.Tensor, qa, qb, jpeg: bool, dc_prec: int,
                    wide: bool) -> torch.Tensor:
     """fdct -> quantize -> dequantize -> idct per 8x8 block (B14); (N, H, W)

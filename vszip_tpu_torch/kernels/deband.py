@@ -43,11 +43,11 @@ from functools import lru_cache
 
 import torch
 
-from .. import _build
+from .. import _build, trace
 
 # Launches made on the CUDA path, per wrapper.  Each wrapper adds one where
 # it launches its kernel and nowhere else; the plain versions never count.
-LAUNCHES = {"deband_center": 0, "deband_m2_center": 0}
+LAUNCHES = trace.register_launches({"deband_center": 0, "deband_m2_center": 0})
 
 SEPARABLE_MODES = (1, 3, 4, 5, 6)
 
@@ -183,6 +183,7 @@ def _check(x: torch.Tensor, plane: torch.Tensor, rmax: int) -> None:
 # wrappers
 # ---------------------------------------------------------------------------
 
+@trace.spanned("vszip.kernel.deband_center", profiled=False)
 def deband_center(x: torch.Tensor, vmap: torch.Tensor, mode: int,
                   blur_first: bool, rmax: int, thr3) -> torch.Tensor:
     """Pre-grain centre of the separable int modes 1, 3, 4, 5, 6 (B5)."""
@@ -203,6 +204,7 @@ def deband_center(x: torch.Tensor, vmap: torch.Tensor, mode: int,
     return out
 
 
+@trace.spanned("vszip.kernel.deband_m2_center", profiled=False)
 def deband_m2_center(x: torch.Tensor, key: torch.Tensor, blur_first: bool,
                      rmax: int, thr: int) -> torch.Tensor:
     """Pre-grain centre of int mode 2 from the joint offset key (B6)."""

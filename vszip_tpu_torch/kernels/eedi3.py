@@ -37,14 +37,14 @@ from functools import lru_cache
 import numpy as np
 import torch
 
-from .. import _build
+from .. import _build, trace
 
 PAD = 96  # padded margin per side of a neighbour row
 BIG = np.float32(np.finfo(np.float32).max * 0.9)  # the DP's cost ceiling
 
 # Launches made on the CUDA path, per wrapper.  Each wrapper adds one where
 # it launches its kernel and nowhere else; the plain versions never count.
-LAUNCHES = {"eedi3_fused": 0, "eedi3_fused_hp": 0, "vcheck": 0}
+LAUNCHES = trace.register_launches({"eedi3_fused": 0, "eedi3_fused_hp": 0, "vcheck": 0})
 
 
 def reset_launches() -> None:
@@ -233,6 +233,7 @@ def _fused(hp: bool, rows, w, mdis, nrad, alpha, beta, gamma, omab, bmask):
 # wrappers
 # ---------------------------------------------------------------------------
 
+@trace.spanned("vszip.kernel.eedi3_fused", profiled=False)
 def eedi3_fused(r3p, r1p, r1n, r3n, w: int, mdis: int, nrad: int, alpha: float,
                 beta: float, gamma: float, omab: float, bmask=None):
     """Non-hp cost, DP, backtrack and 4-tap interpolation of every line (B8);
@@ -246,6 +247,7 @@ def eedi3_fused(r3p, r1p, r1n, r3n, w: int, mdis: int, nrad: int, alpha: float,
     return res
 
 
+@trace.spanned("vszip.kernel.eedi3_fused_hp", profiled=False)
 def eedi3_fused_hp(r3p, r1p, r1n, r3n, w: int, mdis: int, nrad: int, alpha: float,
                    beta: float, gamma: float, omab: float):
     """The same for hp: 4*mdis+1 half-pel directions, +-2 transitions and
@@ -259,6 +261,7 @@ def eedi3_fused_hp(r3p, r1p, r1n, r3n, w: int, mdis: int, nrad: int, alpha: floa
     return res
 
 
+@trace.spanned("vszip.kernel.vcheck", profiled=False)
 def vcheck(dl, nb, dm, cint, init, w: int, mdis: int, hp: bool, vcheck: int,
            rcp0: float, rcp1: float, rcp2: float, vt2: float):
     """The line-sequential reliability blend of every frame (B10);

@@ -34,11 +34,11 @@ from functools import lru_cache
 import numpy as np
 import torch
 
-from .. import _build
+from .. import _build, trace
 
 # Launches made on the CUDA path.  The wrapper adds one where it launches its
 # kernel and nowhere else; the plain version never counts.
-LAUNCHES = {"ssim_sums": 0}
+LAUNCHES = trace.register_launches({"ssim_sums": 0})
 
 # the reference's 9-tap Gaussian (exact f32 values)
 KERNEL = np.array([
@@ -202,6 +202,7 @@ def lane_columns(n: int, h: int, w: int, sms: int) -> int:
     return _lib().vz_ssim_lane_columns(n, h, w, band_rows(w), sms)
 
 
+@trace.spanned("vszip.kernel.ssim_sums", profiled=False)
 def ssim_partials(im1: torch.Tensor, im2: torch.Tensor, need_ssim: bool,
                   need_err: bool, cols: int | None = None) -> torch.Tensor:
     """B13's band partials, (N, nbh, 6, W) f32.  `cols` forces the kernel's

@@ -41,11 +41,11 @@ from functools import lru_cache
 
 import torch
 
-from .. import _build
+from .. import _build, trace
 
 # Launches made on the CUDA path.  The wrapper adds one where it launches its
 # kernel and nowhere else; the plain version never counts.
-LAUNCHES = {"luma_stats": 0, "chroma_sse": 0}
+LAUNCHES = trace.register_launches({"luma_stats": 0, "chroma_sse": 0})
 B = 64  # luma block size of B11
 LANE_BYTES = 8  # B12: a lane's columns of one row, one 8-byte load
 
@@ -196,6 +196,7 @@ def _check(name: str, org: torch.Tensor, rec: torch.Tensor) -> None:
 # wrappers
 # ---------------------------------------------------------------------------
 
+@trace.spanned("vszip.kernel.luma_stats", profiled=False)
 def luma_stats(org: torch.Tensor, rec: torch.Tensor, order: int,
                temporal: bool) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """Per-64x64-block [sse, sa, ta] exact sums (B11); each (N, nbh, nbw)
@@ -240,6 +241,7 @@ def _chroma(name: str, org: tuple, rec: tuple, by: int, bx: int) -> torch.Tensor
     return out.to(torch.float64)
 
 
+@trace.spanned("vszip.kernel.chroma_sse", profiled=False)
 def chroma_sse(org: torch.Tensor, rec: torch.Tensor, by: int, bx: int) -> torch.Tensor:
     """Per-(by x bx)-block exact chroma SSE of one plane (B12); (N, nbh, nbw)
     float64."""
@@ -248,6 +250,7 @@ def chroma_sse(org: torch.Tensor, rec: torch.Tensor, by: int, bx: int) -> torch.
     return _chroma("chroma_sse", (org,), (rec,), by, bx)[0]
 
 
+@trace.spanned("vszip.kernel.chroma_sse", profiled=False)
 def chroma_sse_uv(org_u: torch.Tensor, rec_u: torch.Tensor, org_v: torch.Tensor,
                   rec_v: torch.Tensor, by: int, bx: int) -> torch.Tensor:
     """``chroma_sse`` of both chroma planes in one launch (B12); (2, N, nbh,

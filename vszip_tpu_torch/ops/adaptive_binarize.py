@@ -14,6 +14,7 @@ import torch
 from ..core.clip import Clip
 from ..core.format import SampleType
 from ..core.params import compare_clips, require
+from ..trace import spanned
 
 FILTER_NAME = "AdaptiveBinarize"
 
@@ -23,6 +24,7 @@ def _binarize(s1, s2, c: int):
     return (diff >= c).to(torch.uint8).mul_(255)
 
 
+@spanned("vszip.op.adaptive_binarize")
 def adaptive_binarize(clip: Clip, clip2: Clip, c: int = 3) -> Clip:
     fmt = clip.format
     compare_clips([clip, clip2], FILTER_NAME, same_len=False, bigger_than=True)

@@ -36,6 +36,7 @@ import torch
 from ..core.clip import Clip
 from ..core.format import ColorFamily, SampleType
 from ..core.params import VSZipError, compare_clips, get_array, parse_planes
+from ..trace import spanned
 
 FILTER_NAME = "Bilateral"
 _NP_DTYPES = {torch.float16: np.float16, torch.float32: np.float32}
@@ -240,15 +241,15 @@ def _pbfic(src, ref, num: int, sigma_s: float, peak: float, is_int: bool,
 # public op
 # ---------------------------------------------------------------------------
 
-def bilateral(clip: Clip, ref: Clip | None = None, sigmaS=None, sigmaR=None,
-              planes=None, algorithm=None, PBFICnum=None) -> Clip:
+@spanned("vszip.op.bilateral.derive", profiled=False)
+def _derive(clip: Clip, ref: Clip | None, sigmaS, sigmaR, planes, algorithm, PBFICnum):
+    """Validate the call and derive each plane's parameters as the
+    reference's create step does: (process, sigmaS, sigmaR, PBFICnum, radius,
+    step, algorithm), each per plane."""
     fmt = clip.format
     if fmt.sample_type is SampleType.INTEGER and fmt.bits_per_sample == 32:
         raise VSZipError(f"{FILTER_NAME}: not supported Int format.")
     yuv = fmt.color_family is ColorFamily.YUV
-    hist_len = fmt.hist_len()
-    peak = float(hist_len - 1)
-    is_int = fmt.sample_type is SampleType.INTEGER
 
     # sigmaS defaulting incl. chroma subsampling scaling (reference :104-125)
     if sigmaS is None:
@@ -341,8 +342,29 @@ def bilateral(clip: Clip, ref: Clip | None = None, sigmaS=None, sigmaR=None,
 
     if ref is not None:
         compare_clips([clip, ref], FILTER_NAME, same_len=False, bigger_than=True)
-    rclip = ref if ref is not None else clip
+    return process, s_s, s_r, pbficnum, radius, step, alg
 
+
+@spanned("vszip.op.bilateral.plane", profiled=False)
+def _plane(x: torch.Tensor, rp: torch.Tensor, alg: int, num: int, sigma_s: float,
+           sigma_r: float, radius: int, step: int, hist_len: int, is_int: bool):
+    peak = float(hist_len - 1)
+    if alg == 1:
+        return _pbfic(x, rp, num, float(sigma_s), peak, is_int, sigma_r=float(sigma_r),
+                      hist_len=hist_len)
+    return _truncated(x, rp, _gs_lut(radius, sigma_s).reshape(-1), float(sigma_r), hist_len,
+                      radius, step, peak, is_int)
+
+
+@spanned("vszip.op.bilateral")
+def bilateral(clip: Clip, ref: Clip | None = None, sigmaS=None, sigmaR=None,
+              planes=None, algorithm=None, PBFICnum=None) -> Clip:
+    process, s_s, s_r, pbficnum, radius, step, alg = _derive(
+        clip, ref, sigmaS, sigmaR, planes, algorithm, PBFICnum)
+    fmt = clip.format
+    hist_len = fmt.hist_len()
+    is_int = fmt.sample_type is SampleType.INTEGER
+    rclip = ref if ref is not None else clip
     out = []
     nf = clip.num_frames
     for p in range(fmt.num_planes):
@@ -351,11 +373,6 @@ def bilateral(clip: Clip, ref: Clip | None = None, sigmaS=None, sigmaR=None,
             out.append(x)
             continue
         rp = x if rclip is clip else rclip.planes[p][:nf]
-        if alg[p] == 1:
-            out.append(_pbfic(x, rp, pbficnum[p], float(s_s[p]), peak, is_int,
-                              sigma_r=float(s_r[p]), hist_len=hist_len))
-        else:
-            out.append(_truncated(x, rp, _gs_lut(radius[p], s_s[p]).reshape(-1),
-                                  float(s_r[p]), hist_len, radius[p], step[p], peak,
-                                  is_int))
+        out.append(_plane(x, rp, alg[p], pbficnum[p], s_s[p], s_r[p], radius[p], step[p],
+                          hist_len, is_int))
     return clip.with_planes(out)

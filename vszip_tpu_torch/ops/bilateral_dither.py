@@ -31,6 +31,7 @@ from ..core.clip import Clip
 from ..core.format import SampleType
 from ..core.params import VSZipError, get_array, parse_planes, require
 from ..kernels import bilateral_dither as kernels
+from ..trace import spanned
 from .bilateral_dither_points import NBR_POINT_LISTS, generate, rnd_row_values
 
 FILTER_NAME = "BilateralDither"
@@ -56,6 +57,7 @@ def _f32(v) -> float:
     return float(np.float32(v))
 
 
+@spanned("vszip.op.bilateral_dither")
 def bilateral_dither(clip: Clip, ref: Clip | None = None, radius=None, thr=None, flat=None,
                      wmin=None, subspl=None, planes=None) -> Clip:
     fmt = clip.format

@@ -31,6 +31,7 @@ from ..core.clip import Clip
 from ..core.format import SampleType
 from ..core.params import VSZipError, parse_planes, require
 from ..kernels import boxblur as kernels
+from ..trace import spanned
 
 FILTER_NAME = "BoxBlur"
 
@@ -145,6 +146,7 @@ def _ct_blur_float(x: torch.Tensor, radius: int) -> torch.Tensor:
     return _tap_ladder(_hybrid_taps(tmp, radius, 2), div).to(x.dtype)
 
 
+@spanned("vszip.op.boxblur.plane", profiled=False)
 def _boxblur_plane(x: torch.Tensor, use_rt: bool, hradius: int, hpasses: int,
                    vradius: int, vpasses: int, is_int: bool) -> torch.Tensor:
     if is_int:
@@ -156,9 +158,10 @@ def _boxblur_plane(x: torch.Tensor, use_rt: bool, hradius: int, hpasses: int,
     return _ct_blur_float(x, hradius)
 
 
-def boxblur(clip: Clip, planes=None, hradius: int = 1, hpasses: int = 1,
-            vradius: int = 1, vpasses: int = 1) -> Clip:
-    """vszip.BoxBlur equivalent (reference src/vapoursynth/boxblur.zig:131)."""
+@spanned("vszip.op.boxblur.derive", profiled=False)
+def _derive(clip: Clip, planes, hradius, hpasses, vradius, vpasses):
+    """Validate the call; (planes to process, hradius, hpasses, vradius,
+    vpasses, the runtime path?, integer samples?)."""
     fmt = clip.format
     require(
         not (fmt.sample_type is SampleType.INTEGER and fmt.bits_per_sample == 32),
@@ -190,7 +193,15 @@ def boxblur(clip: Clip, planes=None, hradius: int = 1, hpasses: int = 1,
 
     use_rt = (hradius != vradius) or (hradius > 22) or (hpasses > 1) or (vpasses > 1)
     is_int = fmt.sample_type is SampleType.INTEGER
+    return process, hradius, hpasses, vradius, vpasses, use_rt, is_int
 
+
+@spanned("vszip.op.boxblur")
+def boxblur(clip: Clip, planes=None, hradius: int = 1, hpasses: int = 1,
+            vradius: int = 1, vpasses: int = 1) -> Clip:
+    """vszip.BoxBlur equivalent (reference src/vapoursynth/boxblur.zig:131)."""
+    process, hradius, hpasses, vradius, vpasses, use_rt, is_int = _derive(
+        clip, planes, hradius, hpasses, vradius, vpasses)
     out = []
     for p, x in enumerate(clip.planes):
         if not process[p]:

@@ -15,10 +15,12 @@ from ..core.clip import Clip
 from ..core.format import SampleType
 from ..core.params import VSZipError, require
 from ..kernels import checkmate as kernels
+from ..trace import spanned
 
 FILTER_NAME = "Checkmate"
 
 
+@spanned("vszip.op.checkmate")
 def checkmate(clip: Clip, thr: int = 12, tmax: int = 12, tthr2: int = 0) -> Clip:
     fmt = clip.format
     require(

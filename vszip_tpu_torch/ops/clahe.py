@@ -33,6 +33,7 @@ from ..core.clip import Clip
 from ..core.format import SampleType
 from ..core.params import VSZipError, require
 from ..kernels import clahe as kernels
+from ..trace import spanned
 
 FILTER_NAME = "CLAHE"
 
@@ -169,6 +170,7 @@ def _clahe_plane(x: torch.Tensor, limit: int, tiles_x: int, tiles_y: int,
     return res.to(torch.int32).to(x.dtype)
 
 
+@spanned("vszip.op.clahe")
 def clahe(clip: Clip, limit: int = 7, tiles=None) -> Clip:
     fmt = clip.format
     require(

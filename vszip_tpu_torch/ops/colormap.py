@@ -21,6 +21,7 @@ import torch
 from ..core.clip import Clip
 from ..core.format import get_format
 from ..core.params import VSZipError
+from ..trace import spanned
 
 FILTER_NAME = "ColorMap"
 
@@ -54,6 +55,7 @@ def _lut(color: int) -> np.ndarray:
     return lut
 
 
+@spanned("vszip.op.colormap")
 def colormap(clip: Clip, color: int = 20) -> Clip:
     if clip.format.name != "GRAY8":
         raise VSZipError(f"{FILTER_NAME}: only Gray8 format is supported.")

@@ -16,10 +16,12 @@ from ..core.clip import Clip
 from ..core.format import SampleType
 from ..core.params import VSZipError, require
 from ..kernels import comb_mask as kernels
+from ..trace import spanned
 
 FILTER_NAME = "CombMask"
 
 
+@spanned("vszip.op.comb_mask")
 def comb_mask(clip: Clip, cthresh: int = 6, mthresh: int = 9,
               expand: bool = True, metric: bool = False) -> Clip:
     fmt = clip.format

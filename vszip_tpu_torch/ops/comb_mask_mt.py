@@ -16,6 +16,7 @@ import torch
 from ..core.clip import Clip
 from ..core.format import SampleType
 from ..core.params import VSZipError, require
+from ..trace import spanned
 
 FILTER_NAME = "CombMaskMT"
 
@@ -33,6 +34,7 @@ def _comb_mask_mt_plane(x: torch.Tensor, thy1: int, thy2: int) -> torch.Tensor:
     return torch.cat([zrow, mid, zrow], dim=1)
 
 
+@spanned("vszip.op.comb_mask_mt")
 def comb_mask_mt(clip: Clip, thY1: int = 30, thY2: int = 30) -> Clip:
     fmt = clip.format
     require(

@@ -26,6 +26,7 @@ from ..core.format import ColorFamily, SampleType
 from ..core.params import VSZipError, require
 from ..kernels import compress as kernels
 from ..kernels.compress import JPEG_BIAS, MPEG_BIAS, MPEG_THRESH1, MPEG_THRESH2, QMAT_SHIFT
+from ..trace import spanned
 
 FILTER_NAME = "Compress"
 
@@ -94,6 +95,7 @@ def _quant_setup(codec: str, qscale: int, dc_prec: int, quality: int,
     return jqmat, qtab, wide, (JPEG_BIAS, QMAT_SHIFT)
 
 
+@spanned("vszip.op.compress")
 def compress(clip: Clip, codec: int = 0, quality: int = 50, qscale: int = 8,
              dc_prec: int = 0, chroma: bool = True) -> Clip:
     """vszip.Compress (reference src/vapoursynth/compress.zig): codec 0 =

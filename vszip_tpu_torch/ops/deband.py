@@ -50,6 +50,7 @@ from ..core.format import ColorFamily, SampleType
 from ..core.params import VSZipError, get_array, get_value
 from ..kernels import deband as kernels
 from ..runtime.deband_rng import deband_precompute
+from ..trace import spanned
 
 FILTER_NAME = "Deband"
 
@@ -318,6 +319,7 @@ def _deband_tail(center, grain_buf, grain_off, add_grain: bool, acc,
     return center.clamp(lo, hi).to(out_dtype)
 
 
+@spanned("vszip.op.deband")
 def deband(clip: Clip, range=15, thr=None, thr1=None, thr2=None, grain=None,
            sample_mode: int = 2, seed: int = 0, blur_first: bool = True,
            dynamic_grain: bool = False, keep_tv_range: bool = False,

@@ -43,6 +43,7 @@ from ..core.clip import Clip
 from ..core.format import ColorFamily, SampleType
 from ..core.params import VSZipError
 from ..kernels import eedi3 as kernels
+from ..trace import spanned
 
 # padded margin per side (reference pad_h: align(2*mdis_max + nrad_max + n_vec))
 PAD = kernels.PAD
@@ -534,11 +535,13 @@ def _eedi3_impl(horizontal: bool, clip: Clip, field: int, dh=False, alpha=0.2,
     return Clip(tuple(out_planes), fmt, props)
 
 
+@spanned("vszip.op.eedi3")
 def eedi3(clip: Clip, field: int, **kw) -> Clip:
     """vszip.EEDI3 (vertical interpolation)."""
     return _eedi3_impl(False, clip, field, **kw)
 
 
+@spanned("vszip.op.eedi3h")
 def eedi3h(clip: Clip, field: int, **kw) -> Clip:
     """vszip.EEDI3H (the same pipeline across the width)."""
     return _eedi3_impl(True, clip, field, **kw)

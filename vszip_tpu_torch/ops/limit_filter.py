@@ -23,6 +23,7 @@ import torch
 from ..core.clip import Clip
 from ..core.format import ColorRange, SampleType
 from ..core.params import compare_clips, get_array, parse_planes, require, scale_value
+from ..trace import spanned
 
 FILTER_NAME = "LimitFilter"
 
@@ -46,6 +47,7 @@ def _limit_plane(f, s, r, dark_thr: float, bright_thr: float, elast: float,
     return out.to(f.dtype)
 
 
+@spanned("vszip.op.limit_filter")
 def limit_filter(flt: Clip, src: Clip, ref: Clip | None = None, dark_thr=None,
                  bright_thr=None, elast=None, planes=None) -> Clip:
     fmt = flt.format

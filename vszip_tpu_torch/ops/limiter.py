@@ -23,6 +23,7 @@ import torch
 from ..core.clip import Clip
 from ..core.format import ColorFamily, ColorRange, SampleType
 from ..core.params import VSZipError, parse_planes
+from ..trace import spanned
 
 FILTER_NAME = "Limiter"
 
@@ -54,6 +55,7 @@ def _clamp(x: torch.Tensor, lo, hi) -> torch.Tensor:
     return x.to(wide).clamp(int(lo), int(hi)).to(x.dtype)
 
 
+@spanned("vszip.op.limiter")
 def limiter(clip: Clip, min=None, max=None, tv_range: bool = False,
             mask: bool = False, planes=None) -> Clip:
     fmt = clip.format

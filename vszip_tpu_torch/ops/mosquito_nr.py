@@ -32,6 +32,7 @@ import torch
 from ..core.clip import Clip
 from ..core.format import ColorFamily, SampleType
 from ..core.params import VSZipError, get_array, parse_planes, require
+from ..trace import spanned
 
 FILTER_NAME = "MosquitoNR"
 
@@ -221,6 +222,7 @@ def _mosquito_plane(x, strength: int, restore: int, radius: int, bits: int, is_i
     return out.clamp(lo_clamp, hi_clamp)
 
 
+@spanned("vszip.op.mosquito_nr")
 def mosquito_nr(clip: Clip, strength=None, restore=None, radius=None, planes=None) -> Clip:
     fmt = clip.format
     ok_int = fmt.sample_type is SampleType.INTEGER and 8 <= fmt.bits_per_sample <= 16

@@ -15,6 +15,7 @@ import torch
 from ..core.clip import Clip
 from ..core.format import get_format
 from ..core.params import require
+from ..trace import spanned
 
 FILTER_NAME = "PackRGB"
 
@@ -28,6 +29,7 @@ def _pack(r, g, b, is_rgb24: bool):
     return packed.to(torch.uint32)
 
 
+@spanned("vszip.op.packrgb")
 def packrgb(clip: Clip) -> Clip:
     fmt = clip.format
     is_rgb24 = fmt.name == "RGB24"

@@ -20,6 +20,7 @@ import torch
 from ..core.clip import Clip
 from ..core.format import SampleType
 from ..core.params import VSZipError, compare_clips, parse_planes
+from ..trace import spanned
 
 FILTER_NAME = "PlaneAverage"
 _F64 = torch.float64
@@ -58,6 +59,7 @@ def _diff_plane(x, ref, peak: float, is_int: bool):
     return diff
 
 
+@spanned("vszip.op.plane_average")
 def plane_average(clipa: Clip, exclude=None, clipb: Clip | None = None,
                   planes=None, prop: str = "psm") -> Clip:
     fmt = clipa.format

@@ -19,6 +19,7 @@ import torch
 from ..core.clip import Clip
 from ..core.format import ColorFamily, SampleType
 from ..core.params import VSZipError, compare_clips, parse_planes, require
+from ..trace import spanned
 
 FILTER_NAME = "PlaneMinMax"
 _F64 = torch.float64
@@ -86,6 +87,7 @@ def _diff(x, ref, peakf: float, is_int: bool):
     return diff
 
 
+@spanned("vszip.op.plane_minmax")
 def plane_minmax(clipa: Clip, minthr: float = 0.0, maxthr: float = 0.0,
                  clipb: Clip | None = None, planes=None,
                  prop: str = "psm") -> Clip:

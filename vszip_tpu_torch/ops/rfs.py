@@ -16,6 +16,7 @@ import torch
 
 from ..core.clip import Clip, VariableClip
 from ..core.params import VSZipError, parse_planes
+from ..trace import spanned
 
 FILTER_NAME = "RFS"
 
@@ -48,6 +49,7 @@ def _select(rep, b, a):
     return torch.where(rep, b.view(view), a.view(view)).view(a.dtype)
 
 
+@spanned("vszip.op.rfs")
 def rfs(clipa: Clip, clipb: Clip, frames=None, planes=None,
         mismatch: bool = False):
     dims_match = (clipa.width, clipa.height) == (clipb.width, clipb.height)

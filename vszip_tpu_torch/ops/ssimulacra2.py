@@ -39,6 +39,7 @@ from ..core.params import VSZipError
 from ..core.resample import pick_matrix, srgb_to_linear, to_rgbs
 from ..kernels import ssim as kernels
 from ..kernels.ssim import ssim_maps
+from ..trace import spanned
 from .vcl import cbrt
 
 FILTER_NAME = "SSIMULACRA2"
@@ -213,6 +214,7 @@ def _chunk_scores(c1: Clip, c2: Clip, lin1: bool, lin2: bool, mat1: int = 6,
     return _ssimulacra2_frames(tuple(r1.planes), tuple(r2.planes))
 
 
+@spanned("vszip.op.ssimulacra2")
 def ssimulacra2(reference: Clip, distorted: Clip) -> Clip:
     """Returns a copy of `reference` carrying the per-frame prop
     SSIMULACRA2 ((N,) f64 on the planes' device; the reference props a copy

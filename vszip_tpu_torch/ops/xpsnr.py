@@ -40,6 +40,7 @@ from ..core.params import VSZipError, compare_clips
 from ..core.resample import bit_depth
 from ..kernels import xpsnr as kernels
 from ..kernels.xpsnr import block_sum, lap_map, prev_frames, temporal_diff
+from ..trace import spanned
 
 FILTER_NAME = "XPSNR"
 GAMMA = 2
@@ -250,6 +251,7 @@ def _xpsnr_frame_stats(org, rec, depth: int, frame_rate: int, temporal: bool, di
     return torch.stack(wsse, dim=1)
 
 
+@spanned("vszip.op.xpsnr")
 def xpsnr(reference: Clip, distorted: Clip, temporal: bool = True,
           verbose: bool = False, fps: float | None = None) -> Clip:
     """``verbose=True`` prints the reference's end-of-run summary line

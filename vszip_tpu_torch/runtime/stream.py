@@ -51,6 +51,7 @@ import torch
 from ..core.clip import Clip
 from ..core.format import VideoFormat
 from ..core.params import VSZipError
+from ..trace import span
 
 STATS: dict = {}
 
@@ -141,32 +142,37 @@ class _Loader:
         """The chunk [lo, hi) as `parts`, (mesh entry, start, stop) ranges of
         its frames: for each part its plane tensors on the entry's device and
         (on the card) the event its copy records."""
-        host = self.source(lo, hi)
-        t0 = time.perf_counter()
+        with span("vszip.stream.source"):
+            host = self.source(lo, hi)
         if not self.cuda:
-            src = [_host_tensor(p) for p in host]
-            loaded = [(tuple(t[a:b].clone() for t in src), None) for _, a, b in parts]
-            STATS["fill_s"] += time.perf_counter() - t0
+            with span("vszip.stream.fill"):
+                t0 = time.perf_counter()
+                src = [_host_tensor(p) for p in host]
+                loaded = [(tuple(t[a:b].clone() for t in src), None) for _, a, b in parts]
+                STATS["fill_s"] += time.perf_counter() - t0
             STATS["h2d_bytes"] += sum(t[a:b].nbytes for _, a, b in parts for t in src)
             return loaded
-        if self.ring is None:
-            self.ring = self._staging(host)
-        slot = self.count % 2
-        self.count += 1
-        for done in self.done[slot]:
-            done.synchronize()  # the buffer's last copies have read it
-        staged = []
-        for buf, p in zip(self.ring[slot], host):
-            view = buf[: hi - lo]
-            _fill(view, p)
-            staged.append(view)
-        STATS["fill_s"] += time.perf_counter() - t0
+        with span("vszip.stream.fill"):
+            t0 = time.perf_counter()
+            if self.ring is None:
+                self.ring = self._staging(host)
+            slot = self.count % 2
+            self.count += 1
+            with span("vszip.stream.wait"):
+                for done in self.done[slot]:
+                    done.synchronize()  # the buffer's last copies have read it
+            staged = []
+            for buf, p in zip(self.ring[slot], host):
+                view = buf[: hi - lo]
+                _fill(view, p)
+                staged.append(view)
+            STATS["fill_s"] += time.perf_counter() - t0
         loaded, self.done[slot] = [], []
         for entry, a, b in parts:
             stream = self.copy_streams[entry]
             start = torch.cuda.Event(enable_timing=True)
             done = torch.cuda.Event(enable_timing=True)
-            with torch.cuda.stream(stream):
+            with span("vszip.stream.copy"), torch.cuda.stream(stream):
                 start.record(stream)
                 planes = tuple(v[a:b].to(self.devices[entry], non_blocking=True)
                                for v in staged)
@@ -274,7 +280,8 @@ def process_stream(source, op, *, batch: int = 32, overlap: int = 0,
                 began = torch.cuda.Event(enable_timing=True)
                 ended = torch.cuda.Event(enable_timing=True)
                 began.record(compute)
-            out = op(clip)
+            with span("vszip.stream.op"):
+                out = op(clip)
             if loader.cuda:
                 ended.record(compute)
                 STATS["computes"].append((began, ended))
@@ -286,7 +293,8 @@ def process_stream(source, op, *, batch: int = 32, overlap: int = 0,
         if len(pieces) == 1:
             out = pieces[0][0]
         else:
-            out = pm.gather(pieces, devices[0], "process_stream")
+            with span("vszip.stream.gather"):
+                out = pm.gather(pieces, devices[0], "process_stream")
         del pieces
         # frame-count-changing ops (EEDI3/EEDI3H field=2/3 double the rate:
         # input frame i -> output frames m*i .. m*i+m-1, a contiguous run,
@@ -389,16 +397,18 @@ def _drain(pending, sink, prop_chunks, prop_scalars):
     start, out, lead, tail = pending
     frames = out.planes[0].shape[0]
     kept = trim(out, lead, tail)
-    host_planes = tuple(p.to("cpu", copy=True).numpy()
-                        for p in kept.planes) if sink is not None else None
-    sink_props = {}
-    for k, v in kept.props.items():
-        h = _host(v)
-        if per_frame(k, out.props[k], frames):
-            prop_chunks.setdefault(k, []).append(h)
-        else:
-            prop_scalars[k] = h
-        if k not in _INTERNAL_PROPS:
-            sink_props[k] = h
+    with span("vszip.stream.readback"):
+        host_planes = tuple(p.to("cpu", copy=True).numpy()
+                            for p in kept.planes) if sink is not None else None
+        sink_props = {}
+        for k, v in kept.props.items():
+            h = _host(v)
+            if per_frame(k, out.props[k], frames):
+                prop_chunks.setdefault(k, []).append(h)
+            else:
+                prop_scalars[k] = h
+            if k not in _INTERNAL_PROPS:
+                sink_props[k] = h
     if sink is not None:
-        sink(start, Clip(host_planes, out.format, sink_props))
+        with span("vszip.stream.sink"):
+            sink(start, Clip(host_planes, out.format, sink_props))
