@@ -22,11 +22,12 @@ and XPSNR's props; the SSIMULACRA2 score, ``100 - 10 s^0.63`` of those
 sums, within rtol 1e-9 on a linear input (the fold's f64 rounding grows
 through the power; measured 3.6e-12 on the H100) and 1e-6 on a non-linear
 one (torch's f32 ``pow`` in the sRGB EOTF may round its last bit
-differently on the two devices).  Bilateral (plain torch) is held to its
-contract, not bit for bit: CUDA's ``expf`` and torch's CPU ``exp`` round
-differently, so integer planes may differ by 1 LSB (algorithm 2 on under 1%
-of pixels), f32 within rtol 1e-5 / atol 1e-6 (algorithm 1: 3e-5 / 3e-6), f16
-within one ulp.  The plain filters' integer planes and props are bit-exact,
+differently on the two devices).  Bilateral's algorithm 2 kernel equals its
+plain version on the card bit for bit (both take CUDA's ``expf``); the op on
+the card is held to its contract against the CPU, not bit for bit: CUDA's
+``expf`` and torch's CPU ``exp`` round differently, so integer planes may
+differ by 1 LSB (algorithm 2 on under 1% of pixels), f32 within rtol 1e-5 /
+atol 1e-6 (algorithm 1: 3e-5 / 3e-6), f16 within one ulp.  The plain filters' integer planes and props are bit-exact,
 their f64 props within rtol 1e-12; streamed runs equal resident ones on the
 card bit for bit.
 """
@@ -38,6 +39,7 @@ import pytest
 import torch
 
 import vszip_tpu_torch as vt
+from vszip_tpu_torch.kernels import bilateral as kbl
 from vszip_tpu_torch.kernels import bilateral_dither as kbd
 from vszip_tpu_torch.kernels import boxblur as kb
 from vszip_tpu_torch.kernels import checkmate as kk
@@ -1473,7 +1475,8 @@ def test_bilateral_dither_wrappers_reject_what_kernels_do_not_take(cuda):
 
 
 # ---------------------------------------------------------------------------
-# Bilateral (plain torch), the plain filters and the streaming runtime
+# Bilateral (algorithm 2's window kernel; algorithm 1 plain torch), the plain
+# filters and the streaming runtime
 # ---------------------------------------------------------------------------
 
 def _seeded_clip(fmt_name, n, h, w, seed, device):
@@ -1509,6 +1512,177 @@ def _bilateral_holds(got, want, alg):
                 assert float((d > 0).double().mean()) < 0.01
 
 
+_bl_op = importlib.import_module("vszip_tpu_torch.ops.bilateral")
+# (radius, step, sigmaS) of the bench's luma and chroma planes, and of
+# algorithm 2 forced at sigmaS 12
+_LUMA, _CHROMA, _WIDE = (3, 2, 2.0), (2, 1, 1.0), (16, 3, 12.0)
+
+
+def _bl_windows(clip, ref, specs, sigma_r):
+    """A window for each plane of `clip` that `specs` gives a (radius, step,
+    sigmaS); `ref` a clip with at least as many frames, or None."""
+    f = clip.format
+    hist = f.hist_len()
+    out = []
+    for p, (radius, step, sigma_s) in enumerate(specs):
+        x = clip.planes[p]
+        rp = x if ref is None else ref.planes[p][:clip.num_frames]
+        out.append(kbl.Window(x, rp, _bl_op._gs_lut(radius, sigma_s).reshape(-1), sigma_r, hist,
+                              radius, step, float(hist - 1),
+                              f.sample_type is vt.SampleType.INTEGER))
+    return out
+
+
+def _bl_hold(windows):
+    """The kernel against its plain version on the card, bit for bit; one
+    launch for all the windows."""
+    kbl.reset_launches()
+    got = kbl.bilateral_window(windows)
+    assert kbl.LAUNCHES["bilateral_window"] == 1
+    want = kbl.bilateral_window_ref(windows)
+    assert len(got) == len(want) == len(windows)
+    for g, w_ in zip(got, want):
+        assert g.is_cuda and _same(g, w_)
+
+
+@pytest.mark.parametrize("fmt,sigma_r", [("GRAY8", 0.05), ("GRAY8", 2.0), ("GRAY10", 0.02),
+                                         ("GRAY10", 2.0), ("GRAY16", 2.0), ("GRAY16", 0.02),
+                                         ("YUV420P16", 2.0), ("GRAYH", 0.1), ("GRAYH", 2.0),
+                                         ("GRAYS", 2.0), ("GRAYS", 0.05)], ids=str)
+@pytest.mark.parametrize("with_ref", [False, True])
+def test_bilateral_window_matches_plain(cuda, fmt, sigma_r, with_ref):
+    """Every sample type, with and without a longer joint ref, on odd sizes:
+    the bench's luma and chroma windows, and a wide one where it fits; at
+    sigmaR 2 the weight's clamp never binds at 8 and 16 bits and in floats,
+    and the kernel leaves it out."""
+    n = 2
+    c = _seeded_clip(fmt, n, 45, 77, 3, cuda)
+    ref = _seeded_clip(fmt, n + 3, 45, 77, 4, cuda) if with_ref else None
+    planes = c.format.num_planes
+    _bl_hold(_bl_windows(c, ref, [_LUMA] + [_CHROMA] * (planes - 1), sigma_r))
+    _bl_hold(_bl_windows(c, ref, [_CHROMA] * planes, sigma_r))
+    if planes == 1:
+        _bl_hold(_bl_windows(c, ref, [_WIDE], sigma_r))
+
+
+@pytest.mark.parametrize("fmt", ["GRAY16", "YUV420P16", "GRAYS"])
+@pytest.mark.parametrize("n", [1, 65])
+def test_bilateral_window_matches_plain_at_frame_counts(cuda, fmt, n):
+    c = _seeded_clip(fmt, n, 38, 70, n, cuda)
+    planes = c.format.num_planes
+    _bl_hold(_bl_windows(c, None, [_LUMA] + [_CHROMA] * (planes - 1), 2.0))
+
+
+@pytest.mark.parametrize("spec", [_LUMA, _CHROMA, (1, 1, 0.5)], ids=str)
+@pytest.mark.parametrize("dtype", [torch.uint16, torch.float32], ids=str)
+def test_bilateral_window_on_planes_just_above_twice_the_radius(cuda, spec, dtype):
+    fmt = "GRAY16" if dtype == torch.uint16 else "GRAYS"
+    r = spec[0]
+    for h, w in ((2 * r + 1, 2 * r + 1), (2 * r + 1, 131), (33, 2 * r + 1), (31, 33)):
+        c = _seeded_clip(fmt, 2, h, w, h * w, cuda)
+        _bl_hold(_bl_windows(c, c, [spec], 0.1))
+
+
+@pytest.mark.parametrize("with_ref", [False, True])
+def test_bilateral_window_on_both_sides_of_the_shared_memory_tile(cuda, with_ref):
+    """The largest radius whose tile and halo fit a block's shared memory
+    takes the tile, the next one reads its taps from device memory; both
+    equal the plain version (taps every r // 2 rows and columns from 1)."""
+    on_chip = kbl._lib().vz_bilateral_window_on_chip
+    lim = max(r for r in range(1, 400) if on_chip(r, int(with_ref)))
+    assert lim == (104 if not with_ref else 69)
+    for r in (lim, lim + 1):
+        c = _seeded_clip("GRAY16", 2, 2 * r + 9, 2 * r + 21, r, cuda)
+        ref = _seeded_clip("GRAY16", 2, 2 * r + 9, 2 * r + 21, r + 1, cuda) if with_ref else None
+        _bl_hold(_bl_windows(c, ref, [(r, r // 2, r / 2.0)], 0.1))
+
+
+@pytest.mark.parametrize("fmt,args,launches", [
+    ("YUV420P16", {"sigmaS": 2.0, "sigmaR": 2.0, "planes": [0, 1, 2]}, 1),
+    ("YUV420P16", {"sigmaS": 2.0, "sigmaR": 2.0, "planes": [1]}, 1),
+    ("YUV420P8", {"sigmaS": 3.0, "sigmaR": 0.05, "algorithm": [1, 2, 2]}, 1),
+    ("GRAY16", {"sigmaS": 2.0, "sigmaR": 0.1, "algorithm": 1}, 0),
+    ("GRAYH", {"sigmaS": 12.0, "sigmaR": 0.1, "algorithm": 2}, 1),
+    ("GRAY16", {"sigmaS": 14.0, "sigmaR": 0.1, "algorithm": 2}, 1),
+    ("GRAY8", {"sigmaS": 0.0}, 0),
+], ids=str)
+@pytest.mark.parametrize("with_ref", [False, True])
+def test_bilateral_never_takes_the_plain_window_on_the_card(cuda, monkeypatch, fmt, args,
+                                                            launches, with_ref):
+    """Algorithm 2 on CUDA tensors launches the window kernel once a call,
+    for all its planes, and never reaches the plain version."""
+    def boom(*a, **k):
+        raise AssertionError("plain version on a CUDA tensor")
+
+    monkeypatch.setattr(kbl, "window_ref", boom)
+    monkeypatch.setattr(kbl, "bilateral_window_ref", boom)
+    c = _seeded_clip(fmt, 2, 40, 64, 5, cuda)
+    ref = _seeded_clip(fmt, 4, 40, 64, 6, cuda) if with_ref else None
+    kbl.reset_launches()
+    out = vt.bilateral(c, ref=ref, **args)
+    torch.cuda.synchronize()
+    assert all(p.is_cuda for p in out.planes)
+    assert kbl.LAUNCHES["bilateral_window"] == launches
+
+
+def _bl_views(c, crop):
+    """`c` with each plane a non-contiguous view of the same samples: cut out
+    of a larger zeroed plane (`crop`) or transposed out of a copy with its
+    last two axes swapped."""
+    planes = []
+    for x in c.planes:
+        if crop:
+            n, h, w = x.shape
+            big = torch.zeros((n, h + 2, w + 3), dtype=x.dtype, device=x.device)
+            big[:, 1:-1, 1:-2] = x
+            planes.append(big[:, 1:-1, 1:-2])
+        else:
+            planes.append(x.transpose(1, 2).contiguous().transpose(1, 2))
+    assert not any(v.is_contiguous() for v in planes)
+    return vt.Clip.from_planes(planes, c.format, device=c.planes[0].device)
+
+
+@pytest.mark.parametrize("fmt,specs,sigma_r", [
+    ("YUV420P16", [_LUMA, _CHROMA, _CHROMA], 2.0), ("GRAYH", [_LUMA], 2.0),
+    ("GRAY8", [_CHROMA], 0.05)], ids=str)
+@pytest.mark.parametrize("with_ref", [False, True])
+def test_bilateral_on_card_takes_planes_that_are_views(cuda, fmt, specs, sigma_r, with_ref):
+    """``Clip.from_planes`` keeps a CUDA tensor as it is, so a clip may hold
+    cropped or transposed planes: the op filters them in one launch, as the
+    plain version filters their contiguous copies."""
+    c = _seeded_clip(fmt, 2, 45, 77, 11, cuda)
+    ref = _seeded_clip(fmt, 3, 45, 77, 12, cuda) if with_ref else None
+    views = _bl_views(c, False)
+    rviews = None if ref is None else _bl_views(ref, True)
+    assert views.planes[0].is_cuda
+    kbl.reset_launches()
+    got = vt.bilateral(views, ref=rviews, sigmaS=specs[0][2], sigmaR=sigma_r)
+    assert kbl.LAUNCHES["bilateral_window"] == 1
+    want = kbl.bilateral_window_ref(_bl_windows(c, ref, specs, sigma_r))
+    for g, w_ in zip(got.planes, want):
+        assert g.is_cuda and _same(g, w_)
+
+
+def test_bilateral_window_rejects_what_the_kernel_does_not_take(cuda):
+    c = _seeded_clip("GRAY16", 2, 40, 64, 7, cuda)
+    (win,) = _bl_windows(c, None, [_LUMA], 2.0)
+    x = win.src
+    with pytest.raises(ValueError, match="float32 planes"):
+        kbl.bilateral_window([win._replace(src=x.to(torch.int32), ref=x.to(torch.int32))])
+    with pytest.raises(ValueError, match="contiguous"):
+        kbl.bilateral_window([win._replace(src=x.transpose(1, 2), ref=x.transpose(1, 2))])
+    with pytest.raises(ValueError, match="ref"):
+        kbl.bilateral_window([win._replace(ref=x[:, :39].contiguous())])
+    with pytest.raises(ValueError, match="1 to 3 planes"):
+        kbl.bilateral_window([win] * 4)
+    with pytest.raises(ValueError, match="share their device"):
+        kbl.bilateral_window([win, win._replace(src=x.cpu(), ref=x.cpu())])
+    with pytest.raises(ValueError, match="is_int"):
+        kbl.bilateral_window([win._replace(is_int=False)])
+    with pytest.raises(ValueError, match="radius 3, step 2 with 9"):
+        kbl.bilateral_window([win._replace(gs=win.gs[:9])])
+
+
 @pytest.mark.parametrize("fmt,args,alg", [
     ("YUV420P16", {"sigmaS": 2.0, "sigmaR": 2.0, "planes": [0, 1, 2]}, 2),
     ("GRAY8", {"sigmaS": 3.0, "sigmaR": 0.05}, 2),
@@ -1523,11 +1697,11 @@ def _bilateral_holds(got, want, alg):
 def test_bilateral_on_card_holds_its_contract_against_cpu(cuda, fmt, args, alg, with_ref):
     c = _seeded_clip(fmt, 2, 40, 64, 1, cuda)
     ref = _seeded_clip(fmt, 3, 40, 64, 2, cuda) if with_ref else None
-    for m in (kb, kd, kc, ke, kx, ks, kz, kk, km, kbd):
+    for m in (kb, kd, kc, ke, kx, ks, kz, kk, km, kbd, kbl):
         m.reset_launches()
     got = vt.bilateral(c, ref=ref, **args)
-    assert not any(n for m in (kb, kd, kc, ke, kx, ks, kz, kk, km, kbd)
-                   for n in m.LAUNCHES.values())
+    assert {k: n for m in (kb, kd, kc, ke, kx, ks, kz, kk, km, kbd, kbl)
+            for k, n in m.LAUNCHES.items() if n} == ({"bilateral_window": 1} if alg == 2 else {})
     assert all(p.is_cuda for p in got.planes)
     want = vt.bilateral(c.to("cpu"), ref=None if ref is None else ref.to("cpu"), **args)
     _bilateral_holds(got, want, alg)

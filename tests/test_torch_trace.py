@@ -12,14 +12,15 @@ import torch
 
 import vszip_tpu_torch as vt
 from vszip_tpu_torch import trace
-from vszip_tpu_torch.kernels import (bilateral_dither, boxblur, checkmate, clahe, comb_mask,
-                                     compress, deband, eedi3, ssim, xpsnr)
+from vszip_tpu_torch.kernels import (bilateral, bilateral_dither, boxblur, checkmate, clahe,
+                                     comb_mask, compress, deband, eedi3, ssim, xpsnr)
 
-KERNEL_MODULES = (bilateral_dither, boxblur, checkmate, clahe, comb_mask, compress, deband,
-                  eedi3, ssim, xpsnr)
+KERNEL_MODULES = (bilateral, bilateral_dither, boxblur, checkmate, clahe, comb_mask, compress,
+                  deband, eedi3, ssim, xpsnr)
 # each kernel wrapper and the launch counter its span is named after
 WRAPPERS = [(boxblur, "ct_blur_int", "ct_blur_int"), (boxblur, "rt_blur_h", "rt_blur_h"),
             (boxblur, "rt_blur_v_multi", "rt_blur_v_multi"), (boxblur, "rt_blur_v", "rt_blur_v"),
+            (bilateral, "bilateral_window", "bilateral_window"),
             (bilateral_dither, "dense_blur", "dense_blur"),
             (bilateral_dither, "subspl_blur", "subspl_blur"),
             (checkmate, "checkmate", "checkmate"), (clahe, "clahe8_lookup", "clahe8_lookup"),
@@ -158,8 +159,13 @@ def test_boxblur_and_bilateral_stay_within_their_span_budgets():
     assert len(ops) == 1 and all(s[2] != 0 for s in t.spans if s is not ops[0])
     with trace.collect() as t:
         vt.bilateral(c, sigmaS=2.0, sigmaR=2.0, planes=[0, 1, 2])
-    assert _names(t) == ["vszip.op.bilateral", "vszip.op.bilateral.derive"] + [
-        "vszip.op.bilateral.plane"] * 3    # the budget is 40
+    # algorithm 2 on every plane: the planes' work is under the window's span
+    assert _names(t) == ["vszip.op.bilateral", "vszip.op.bilateral.derive",
+                         "vszip.kernel.bilateral_window"]  # the budget is 40
+    with trace.collect() as t:
+        vt.bilateral(c, sigmaS=2.0, sigmaR=0.1, algorithm=[1, 2, 2])
+    assert _names(t) == ["vszip.op.bilateral", "vszip.op.bilateral.derive",
+                         "vszip.op.bilateral.plane", "vszip.kernel.bilateral_window"]
     totals = t.totals()
     assert totals["vszip.op.bilateral"]["self_s"] <= totals["vszip.op.bilateral"]["total_s"]
 

@@ -13,6 +13,7 @@ library               source                               compiler
 ``xpsnr``             ``csrc/xpsnr.cu``                    nvcc (``sm_90a``)
 ``ssim``              ``csrc/ssim.cu``                     nvcc (``sm_90a``)
 ``bilateral_dither``  ``csrc/bilateral_dither.cu``         nvcc (``sm_90a``)
+``bilateral``         ``csrc/bilateral.cu``                nvcc (``sm_90a``)
 ``compress``          ``csrc/compress.cu``                 nvcc (``sm_90a``)
 ``checkmate``         ``csrc/checkmate.cu``                nvcc (``sm_90a``)
 ``comb_mask``         ``csrc/comb_mask.cu``                nvcc (``sm_90a``)
@@ -49,8 +50,8 @@ GXX_FLAGS = ("-O2", "-fPIC", "-shared")
 
 # name -> (source relative to the package, extra flags).  deband.cu's mode 6
 # (the VCL pow polynomial), CLAHE's blend, EEDI3's cost, DP and
-# interpolation, SSIMULACRA2's blurs and maps and BilateralDither's tap sums
-# pin their f32 order:
+# interpolation, SSIMULACRA2's blurs and maps, BilateralDither's tap sums and
+# Bilateral's window sums pin their f32 order:
 # -fmad=false stops nvcc contracting a*b+c into FMA, so they round as the
 # plain torch versions.
 LIBRARIES = {
@@ -61,6 +62,7 @@ LIBRARIES = {
     "xpsnr": ("csrc/xpsnr.cu", ()),
     "ssim": ("csrc/ssim.cu", ("-fmad=false",)),
     "bilateral_dither": ("csrc/bilateral_dither.cu", ("-fmad=false",)),
+    "bilateral": ("csrc/bilateral.cu", ("-fmad=false",)),
     # integer only: nothing to contract
     "compress": ("csrc/compress.cu", ()),
     "checkmate": ("csrc/checkmate.cu", ()),

@@ -4,22 +4,25 @@ The PyTorch counterpart of ``vszip_tpu.ops.bilateral`` (reference
 src/filters/bilateral.zig + src/vapoursynth/bilateral.zig), with the same
 arguments, messages and create-time derivation (sigmaS chroma scaling,
 PBFICnum auto, radius/step/samples, algorithm auto-select, plane disable on
-zero sigmas) as host Python.  Both algorithms are plain torch on either
-device:
+zero sigmas) as host Python.
 
-* alg2 ("truncated"): spatial window of sub-sampled taps ``(+-xx, +-yy)``
-  for xx, yy in {1, 1+step, ...} < radius+1 over a replicate-padded copy,
-  spatial weights from the Gaussian LUT and range weights evaluated in f32
-  (``exp`` of the scaled, clamped |diff|; floats index at
-  ``trunc(min(1,|d|)*65535 + 0.5)`` with |d| taken in the storage dtype).
-  Sums keep the reference's (yy, xx) order and its four-offset grouping,
-  each product and sum rounded on its own.
+* alg2 ("truncated"): spatial window of sub-sampled taps ``(+-yy, +-xx)``
+  for xx, yy in {1, 1+step, ...} < radius+1 with replicated edges, spatial
+  weights from the Gaussian LUT and range weights evaluated in f32 (``exp``
+  of the scaled, clamped |diff|; floats index at ``trunc(min(1,|d|)*65535 +
+  0.5)`` with |d| taken in the storage dtype).  Sums keep the reference's
+  (yy, xx) order and its four-offset grouping, each product and sum rounded
+  on its own.  ``_truncated`` describes each plane as a
+  ``kernels.bilateral.Window``; ``kernels.bilateral.bilateral_window`` runs
+  the call's windows together: one CUDA launch for all of them on the card,
+  the plain torch version on the CPU.
 * alg1 (PBFIC, Yang et al.): per luminance level a range-weight plane Wk and
   product Jk, smoothed by the forward+backward van Vliet IIR (horizontal pass
   with the ends passed through, vertical pass with them computed), then
   Jk/Wk linearly interpolated between the two levels that bracket the
   reference pixel.  Levels run one at a time; only the two bracket
-  accumulators are kept, so memory does not grow with PBFICnum.
+  accumulators are kept, so memory does not grow with PBFICnum.  Plain torch
+  on either device.
 
 Integer planes are computed in int32/f32 (torch lacks uint16 pads and
 clamps).  ``exp`` differs by an ulp or two between XLA:CPU, torch's CPU and
@@ -36,6 +39,8 @@ import torch
 from ..core.clip import Clip
 from ..core.format import ColorFamily, SampleType
 from ..core.params import VSZipError, compare_clips, get_array, parse_planes
+from ..kernels import bilateral as kbl
+from ..kernels.bilateral import _gr_consts, _range_index, _weight_
 from ..trace import spanned
 
 FILTER_NAME = "Bilateral"
@@ -66,83 +71,15 @@ def _recursive_gaussian_params(sigma: float):
     return b, np.float32(n1 / den), np.float32(n2 / den), np.float32(n3 / den)
 
 
-def _gr_consts(hist_len: int, sigma_r: float):
-    """(upper, scale, c) of the range weight ``exp(((min(idx, upper) *
-    scale)^2) * -0.5) * c`` in f32 (the reference's LUT formula,
-    src/filters/bilateral.zig:306-348, with its two f64 divisions folded
-    into one f32 scale, as the JAX package evaluates it)."""
-    rng = float(hist_len - 1)
-    upper = float(np.trunc(min(rng, sigma_r * 8.0 * rng + 0.5)))
-    scale = np.float32(1.0 / (rng * float(sigma_r)))
-    c = np.float32(1.0 / (math.sqrt(2.0 * math.pi) * sigma_r))
-    return float(np.float32(upper)), float(scale), float(c)
-
-
-def _weight_(idx: torch.Tensor, consts) -> torch.Tensor:
-    """Range weight of the int32 index plane `idx`, as a new f32 tensor;
-    every step rounds to f32 on its own."""
-    upper, scale, c = consts
-    t = idx.to(torch.float32).clamp_(max=upper).mul_(scale)
-    return t.mul_(t).mul_(-0.5).exp_().mul_(c)
-
-
-def _range_index(cx, nb, is_int: bool) -> torch.Tensor:
-    """int32 LUT index of |cx - nb|: integers as int32 differences; floats
-    subtract in the storage dtype, then ``trunc(min(1, |d|) * 65535 + 0.5)``
-    in f32."""
-    if is_int:
-        return torch.sub(cx, nb).abs_()
-    ad = torch.sub(cx, nb).abs_().to(torch.float32)
-    return ad.clamp_(max=1.0).mul_(65535.0).add_(0.5).to(torch.int32)
-
-
 # ---------------------------------------------------------------------------
 # alg2: truncated spatial window
 # ---------------------------------------------------------------------------
 
-def _pad_edges(x: torch.Tensor, r: int) -> torch.Tensor:
-    """(N, H+2r, W+2r) copy of `x` with replicated edges (any dtype)."""
-    h, w = x.shape[1], x.shape[2]
-    iy = torch.arange(-r, h + r, device=x.device).clamp_(0, h - 1)
-    ix = torch.arange(-r, w + r, device=x.device).clamp_(0, w - 1)
-    return x[:, iy][:, :, ix]
-
-
 def _truncated(src, ref, gs: np.ndarray, sigma_r: float, hist_len: int, radius: int,
-               step: int, peak: float, is_int: bool):
-    consts = _gr_consts(hist_len, sigma_r)
-    n, h, w = src.shape
-    work = torch.int32 if is_int else src.dtype
-    refp = _pad_edges(ref.to(work), radius)
-    srcp = (refp if src is ref else _pad_edges(src.to(work), radius)).to(torch.float32)
-
-    def tap(a, dy, dx):
-        return a[:, radius + dy: radius + dy + h, radius + dx: radius + dx + w]
-
-    cx = tap(refp, 0, 0)
-    # gs[0] * grf(0): exp(-0) is exactly 1 in every implementation
-    w0 = float(np.float32(gs[0]) * np.float32(consts[2]))
-    wsum = torch.full(src.shape, w0, dtype=torch.float32, device=src.device)
-    s = tap(srcp, 0, 0).mul(w0)
-    radius2 = radius + 1
-    for yy in range(1, radius2, step):
-        for xx in range(1, radius2, step):
-            swei = float(gs[yy * radius2 + xx])
-            rsum, acc = None, None
-            for dy, dx in ((-yy, xx), (yy, xx), (-yy, -xx), (yy, -xx)):
-                rw = _weight_(_range_index(cx, tap(refp, dy, dx), is_int), consts)
-                rsum = rw.clone() if rsum is None else rsum.add_(rw)
-                prod = rw.mul_(tap(srcp, dy, dx))
-                acc = prod if acc is None else acc.add_(prod)
-                del rw, prod
-            wsum.add_(rsum.mul_(swei))
-            s.add_(acc.mul_(swei))
-            del rsum, acc
-    r = s.div_(wsum)
-    del wsum, srcp, refp
-    if is_int:
-        return r.add_(0.5).clamp_(0.0, peak).trunc_().to(torch.int32).to(src.dtype)
-    return r.to(src.dtype)
+               step: int, peak: float, is_int: bool) -> kbl.Window:
+    """Algorithm 2 on one plane, as the window ``kbl.bilateral_window`` runs
+    with the call's others."""
+    return kbl.Window(src, ref, gs, sigma_r, hist_len, radius, step, peak, is_int)
 
 
 # ---------------------------------------------------------------------------
@@ -346,14 +283,11 @@ def _derive(clip: Clip, ref: Clip | None, sigmaS, sigmaR, planes, algorithm, PBF
 
 
 @spanned("vszip.op.bilateral.plane", profiled=False)
-def _plane(x: torch.Tensor, rp: torch.Tensor, alg: int, num: int, sigma_s: float,
-           sigma_r: float, radius: int, step: int, hist_len: int, is_int: bool):
-    peak = float(hist_len - 1)
-    if alg == 1:
-        return _pbfic(x, rp, num, float(sigma_s), peak, is_int, sigma_r=float(sigma_r),
-                      hist_len=hist_len)
-    return _truncated(x, rp, _gs_lut(radius, sigma_s).reshape(-1), float(sigma_r), hist_len,
-                      radius, step, peak, is_int)
+def _plane(x: torch.Tensor, rp: torch.Tensor, num: int, sigma_s: float, sigma_r: float,
+           hist_len: int, is_int: bool) -> torch.Tensor:
+    """Algorithm 1's output plane."""
+    return _pbfic(x, rp, num, float(sigma_s), float(hist_len - 1), is_int,
+                  sigma_r=float(sigma_r), hist_len=hist_len)
 
 
 @spanned("vszip.op.bilateral")
@@ -365,14 +299,23 @@ def bilateral(clip: Clip, ref: Clip | None = None, sigmaS=None, sigmaR=None,
     hist_len = fmt.hist_len()
     is_int = fmt.sample_type is SampleType.INTEGER
     rclip = ref if ref is not None else clip
-    out = []
+    out, windows = [], {}
     nf = clip.num_frames
     for p in range(fmt.num_planes):
         x = clip.planes[p]
-        if not process[p]:
-            out.append(x)
-            continue
-        rp = x if rclip is clip else rclip.planes[p][:nf]
-        out.append(_plane(x, rp, alg[p], pbficnum[p], s_s[p], s_r[p], radius[p], step[p],
-                          hist_len, is_int))
+        if process[p]:
+            rp = x if rclip is clip else rclip.planes[p][:nf]
+            if alg[p] == 2:
+                # the window kernel takes contiguous planes (a clip may hold views)
+                x = x.contiguous()
+                rp = x if rclip is clip else rp.contiguous()
+                windows[p] = _truncated(x, rp, _gs_lut(radius[p], s_s[p]).reshape(-1),
+                                        float(s_r[p]), hist_len, radius[p], step[p],
+                                        float(hist_len - 1), is_int)
+            else:
+                x = _plane(x, rp, pbficnum[p], s_s[p], s_r[p], hist_len, is_int)
+        out.append(x)
+    if windows:
+        for p, plane in zip(windows, kbl.bilateral_window(tuple(windows.values()))):
+            out[p] = plane
     return clip.with_planes(out)
