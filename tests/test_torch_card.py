@@ -4,8 +4,9 @@ Checkmate, CombMask, CombMaskMT, BilateralDither, MosquitoNR, Bilateral and
 the plain filters) on the card against the port's CPU path, the streaming
 runtime against resident calls, ImageRead on the card against a CPU read,
 ``run_sharded`` and ``process_stream`` over a two-entry mesh on cuda:0
-against resident calls, the launch counters, and the wrappers' input
-checks.  Every test here needs an NVIDIA GPU and skips
+against resident calls, the benchmark's 5-pass BoxBlur at 1080p against
+its runtime-path reference, the launch and variant counters, and the
+wrappers' input checks.  Every test here needs an NVIDIA GPU and skips
 without one.  This file imports no JAX (the card's machine has none), so it
 runs there on its own, without tests/conftest.py:
 
@@ -33,12 +34,16 @@ card bit for bit.
 """
 
 import importlib
+import json
+from pathlib import Path
 
 import numpy as np
 import pytest
 import torch
 
 import vszip_tpu_torch as vt
+from portbench.reference import boxblur_rt
+from portbench.traffic import frames as bench_frames
 from vszip_tpu_torch.kernels import bilateral as kbl
 from vszip_tpu_torch.kernels import bilateral_dither as kbd
 from vszip_tpu_torch.kernels import boxblur as kb
@@ -260,6 +265,29 @@ def test_boxblur_on_card_matches_cpu(cuda, args):
     want = vt.limiter(vt.boxblur(cpu, **args), tv_range=True)
     for g, w in zip(got.planes, want.planes):
         assert g.is_cuda and _same(g.cpu(), w)
+
+
+def test_boxblur_5pass_1080p_matches_the_benchmark_reference_through_v_chip_and_shared_h_fixed(
+        cuda):
+    """The benchmark's 5-pass configuration, 8 frames of its seeded 1080p
+    YUV420P16 pictures, through the op: bit for bit the runtime-path
+    reference (``portbench/reference/boxblur_rt.py``), with every plane's
+    vertical passes on chip (``v_chip``) and horizontal ones in shared
+    memory."""
+    root = Path(__file__).resolve().parents[1]
+    cfg = json.loads((root / "portbench/configs/boxblur_r13_5pass_yuv420p16_1080p.json")
+                     .read_text())
+    planes = bench_frames.make_planes(2**31 + 99, 8, [tuple(s) for s in cfg["planes"]],
+                                      cfg["bits"], cuda)
+    clip = vt.Clip.from_planes(planes, vt.get_format(cfg["format"]))
+    kb.reset_launches()
+    got = vt.boxblur(clip, **cfg["args"])
+    torch.cuda.synchronize()
+    assert {k: n for k, n in kb.LAUNCHES.items() if n} == {"rt_blur_h": 3, "rt_blur_v_multi": 3}
+    assert kb.VARIANTS == {"v_chip": 3, "v_fixed": 0, "h_fixed_shared": 3, "h_fixed_scratch": 0}
+    want = boxblur_rt.run(planes, cfg)
+    for g, w in zip(got.planes, want):
+        assert g.is_cuda and _same(g, w)
 
 
 def test_a_profiled_boxblur_call_shows_its_ranges_and_no_extra_device_work(cuda):

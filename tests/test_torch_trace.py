@@ -228,12 +228,18 @@ def test_process_stream_over_a_mesh_gives_one_op_span_per_entry():
                      "vszip.stream.op", "vszip.stream.gather"]
 
 
+def _registered(m):
+    """A kernel module's registered counter dicts: its LAUNCHES, and
+    BoxBlur's VARIANTS."""
+    return [m.LAUNCHES] + ([m.VARIANTS] if m is boxblur else [])
+
+
 def test_counters_are_the_modules_launches():
     view = trace.counters()
     want = {}
-    for m in KERNEL_MODULES:
-        assert not set(m.LAUNCHES) & set(want)
-        want.update(m.LAUNCHES)
+    for d in (d for m in KERNEL_MODULES for d in _registered(m)):
+        assert not set(d) & set(want)
+        want.update(d)
     assert dict(view) == want and len(view) == len(want)
     with pytest.raises(TypeError):
         view["ct_blur_int"] = 1
@@ -244,7 +250,7 @@ def test_counters_are_the_modules_launches():
             assert view["ct_blur_int"] == saved["ct_blur_int"] + 3
         assert t.launches == {"ct_blur_int": 3}
         boxblur.reset_launches()
-        assert all(view[k] == 0 for k in boxblur.LAUNCHES)
+        assert all(view[k] == 0 for k in (*boxblur.LAUNCHES, *boxblur.VARIANTS))
     finally:
         boxblur.LAUNCHES.update(saved)
     with pytest.raises(KeyError):
@@ -253,9 +259,37 @@ def test_counters_are_the_modules_launches():
 
 def test_a_launch_counter_name_is_registered_once():
     assert trace.register_launches(boxblur.LAUNCHES) is boxblur.LAUNCHES
-    assert len(trace.counters()) == sum(len(m.LAUNCHES) for m in KERNEL_MODULES)
+    assert trace.register_launches(boxblur.VARIANTS) is boxblur.VARIANTS
+    assert len(trace.counters()) == sum(len(d) for m in KERNEL_MODULES for d in _registered(m))
     with pytest.raises(ValueError, match="registered twice"):
         trace.register_launches({"ct_blur_int": 0})
+    with pytest.raises(ValueError, match="registered twice"):
+        trace.register_launches({"v_chip": 0})
+
+
+def test_boxblur_variant_counters_are_in_the_view_and_the_cpu_path_never_counts_them():
+    """Which kernel variant each BoxBlur launch took (``v_chip`` or the column
+    walk ``v_fixed``; ``h_fixed`` in shared memory or with global scratch)
+    is a registered counter; the plain versions on the CPU launch nothing."""
+    view = trace.counters()
+    assert set(boxblur.VARIANTS) == {"v_chip", "v_fixed", "h_fixed_shared", "h_fixed_scratch"}
+    assert set(boxblur.VARIANTS) <= set(view)
+    planes, fmt = _clip()
+    c = vt.Clip.from_planes(planes, fmt, device="cpu")
+    before = dict(view)
+    with trace.collect() as t:
+        vt.boxblur(c, hradius=13, hpasses=5, vradius=13, vpasses=5)
+        vt.boxblur(c, hradius=4, vradius=9)
+        vt.boxblur(c, hradius=13, vradius=13)
+    assert t.launches == {} and dict(view) == before
+    saved = dict(boxblur.VARIANTS)
+    try:
+        boxblur.VARIANTS["v_chip"] += 2
+        assert view["v_chip"] == saved["v_chip"] + 2
+        boxblur.reset_launches()
+        assert all(view[k] == 0 for k in boxblur.VARIANTS)
+    finally:
+        boxblur.VARIANTS.update(saved)
 
 
 def _profiled_events(fn):

@@ -59,11 +59,18 @@ from .. import _build, trace
 # it launches its kernel(s) and nowhere else; the plain versions never count.
 LAUNCHES = trace.register_launches({"ct_blur_int": 0, "rt_blur_h": 0, "rt_blur_v_multi": 0,
                                     "rt_blur_v": 0})
+# The variant each CUDA launch of ``v_fixed`` and ``h_fixed`` took: the
+# on-chip ``v_chip`` or the column walk ``v_fixed``; ``h_fixed`` with its
+# row in shared memory or in a global scratch buffer.  ``ct_blur_int``'s
+# horizontal stage counts here too; its vertical stage is ``ct_v_chip``.
+VARIANTS = trace.register_launches({"v_chip": 0, "v_fixed": 0, "h_fixed_shared": 0,
+                                    "h_fixed_scratch": 0})
 
 
 def reset_launches() -> None:
-    for k in LAUNCHES:
-        LAUNCHES[k] = 0
+    for d in (LAUNCHES, VARIANTS):
+        for k in d:
+            d[k] = 0
 
 
 # ``v_chip`` (csrc/boxblur.cu) unrolls up to V_CHIP_PASSES passes, and one
@@ -242,11 +249,13 @@ def _v_fixed(x: torch.Tensor, radius: int, passes: int) -> torch.Tensor:
         if v_fixed_on_chip(radius, passes):
             _build.check(_lib().vz_v_chip, x.data_ptr(), out.data_ptr(), x.element_size(),
                          n, h, w, radius, passes, _build.stream(x))
+            VARIANTS["v_chip"] += 1
         else:
             scratch = torch.empty_like(x) if passes > 1 else None
             _build.check(_lib().vz_v_fixed, x.data_ptr(), out.data_ptr(),
                          None if scratch is None else scratch.data_ptr(), x.element_size(),
                          n, h, w, radius, passes, _build.stream(x))
+            VARIANTS["v_fixed"] += 1
     return out
 
 
@@ -269,6 +278,7 @@ def _h_fixed(x: torch.Tensor, radius: int, passes: int) -> torch.Tensor:
         _build.check(_lib().vz_h_fixed, x.data_ptr(), out.data_ptr(),
                      None if scratch is None else scratch.data_ptr(), x.element_size(),
                      n * h, w, radius, passes, _build.stream(x))
+    VARIANTS["h_fixed_scratch" if words else "h_fixed_shared"] += 1
     return out
 
 

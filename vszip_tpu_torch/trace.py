@@ -32,7 +32,9 @@ A span records only while someone looks:
   profiler stamps its CPU events with: the two line up with no conversion.
 
 ``counters()`` is a read-only view of the kernel wrappers' launch counters
-by kernel name: the modules' own ``LAUNCHES`` dicts, which each kernel
+by kernel name: the modules' own ``LAUNCHES`` dicts, and BoxBlur's
+``VARIANTS`` (the kernel variant each launch took: ``v_chip`` or
+``v_fixed``, ``h_fixed_shared`` or ``h_fixed_scratch``), which each kernel
 module registers here (``reset_launches()`` resets them in place).
 """
 
@@ -53,7 +55,7 @@ _Range = getattr(torch._C._profiler, "_RecordFunctionFast", torch.profiler.recor
 _collecting: list = []        # the active collect()s' traces, outermost first
 _open = threading.local()     # per thread: ids of the open collected spans
 _ids = itertools.count(1)
-_launches: list[dict] = []    # the kernel modules' LAUNCHES, in registration order
+_launches: list[dict] = []    # the kernel modules' counter dicts, in registration order
 
 
 class _Off:
@@ -161,8 +163,9 @@ def counters() -> Counters:
 
 
 def register_launches(launches: dict) -> dict:
-    """Register a kernel module's ``LAUNCHES`` (the same dict, not a copy);
-    returns it.  A kernel name belongs to one module."""
+    """Register a kernel module's ``LAUNCHES``, or another dict of its
+    counters (the same dict, not a copy); returns it.  A name belongs to one
+    dict."""
     if not any(d is launches for d in _launches):
         clash = set(launches).intersection(_COUNTERS)
         if clash:
