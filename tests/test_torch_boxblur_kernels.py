@@ -148,3 +148,31 @@ def test_v_fixed_takes_the_column_walk_past_the_rings(radius, passes, on_chip):
     # v_chip keeps passes * (2r + 1) + 20 rows of 128 bytes per warp and
     # unrolls at most 6 passes; past either the wrapper takes v_fixed's walk
     assert kt.v_fixed_on_chip(radius, passes) is on_chip
+
+
+def test_h_fixed_warp_runs_are_the_kernels():
+    # kernels/boxblur.py H_WARP_RUNS mirrors csrc/boxblur.cu kWarpRuns, which
+    # launch_h_fixed's h_warp_shape reads
+    import re
+    from pathlib import Path
+
+    src = (Path(kt.__file__).resolve().parents[1] / "csrc" / "boxblur.cu").read_text()
+    body = re.search(r"constexpr int kWarpRuns\[\]\[3\] = \{(.*?)\};", src, re.S).group(1)
+    runs = tuple((int(a), int(b)) for a, b, _ in re.findall(r"\{(\d+), (\d+), (\d+)\}", body))
+    assert runs == kt.H_WARP_RUNS
+    # every run's registers hold its chunks (at most 48 slots: r <= 23)
+    assert [s for s, _ in runs] == sorted(s for s, _ in runs) and runs[-1][0] == 48
+
+
+@pytest.mark.parametrize("w,radius,passes,in_registers", [
+    # 1080p YUV420 planes at the benchmark's r 13, one pass (B1) and five (B2)
+    (1920, 13, 1, True), (960, 13, 1, True), (1920, 13, 5, True), (960, 13, 5, True),
+    # the runtime path's r 23 at one pass; B1's largest comptime radius
+    (1920, 23, 1, True), (1920, 22, 1, True),
+    # past the runs (r > 23), past a lane's registers (4K rows), r > w
+    (1920, 24, 1, False), (3840, 13, 1, False), (3840, 1, 1, False), (12, 13, 1, False),
+    # more passes need wider margins
+    (2500, 13, 1, True), (2500, 13, 6, False),
+], ids=str)
+def test_h_fixed_in_registers_takes_the_1080p_planes(w, radius, passes, in_registers):
+    assert kt.h_fixed_in_registers(w, radius, passes) is in_registers

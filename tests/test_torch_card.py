@@ -267,13 +267,13 @@ def test_boxblur_on_card_matches_cpu(cuda, args):
         assert g.is_cuda and _same(g.cpu(), w)
 
 
-def test_boxblur_5pass_1080p_matches_the_benchmark_reference_through_v_chip_and_shared_h_fixed(
+def test_boxblur_5pass_1080p_matches_the_benchmark_reference_through_v_chip_and_warp_h_fixed(
         cuda):
     """The benchmark's 5-pass configuration, 8 frames of its seeded 1080p
     YUV420P16 pictures, through the op: bit for bit the runtime-path
     reference (``portbench/reference/boxblur_rt.py``), with every plane's
-    vertical passes on chip (``v_chip``) and horizontal ones in shared
-    memory."""
+    vertical passes on chip (``v_chip``) and horizontal ones one warp a row
+    in registers (``h_fixed_warp``), none in the block design."""
     root = Path(__file__).resolve().parents[1]
     cfg = json.loads((root / "portbench/configs/boxblur_r13_5pass_yuv420p16_1080p.json")
                      .read_text())
@@ -284,7 +284,8 @@ def test_boxblur_5pass_1080p_matches_the_benchmark_reference_through_v_chip_and_
     got = vt.boxblur(clip, **cfg["args"])
     torch.cuda.synchronize()
     assert {k: n for k, n in kb.LAUNCHES.items() if n} == {"rt_blur_h": 3, "rt_blur_v_multi": 3}
-    assert kb.VARIANTS == {"v_chip": 3, "v_fixed": 0, "h_fixed_shared": 3, "h_fixed_scratch": 0}
+    assert kb.VARIANTS == {"v_chip": 3, "v_fixed": 0, "h_fixed_warp": 3, "h_fixed_shared": 0,
+                           "h_fixed_scratch": 0}
     want = boxblur_rt.run(planes, cfg)
     for g, w in zip(got.planes, want):
         assert g.is_cuda and _same(g, w)
@@ -1052,6 +1053,69 @@ def test_h_fixed_matches_plain_at_segment_edges(cuda, dtype, w):
             assert _same(kb.rt_blur_h(x, r, p), kb.h_fixed_ref(x, r, p)), (r, p)
         if r < 48:  # the vertical window must fit the 96 rows
             assert _same(kb.ct_blur_int(x, r), kb.ct_blur_int_ref(x, r)), r
+
+
+def _widest_in_registers(r, passes):
+    w = r
+    while kb.h_fixed_in_registers(w + 1, r, passes):
+        w += 1
+    return w
+
+
+def _h_fixed_variant(w, r, passes):
+    return "h_fixed_warp" if kb.h_fixed_in_registers(w, r, passes) else "h_fixed_shared"
+
+
+# h_fixed one warp a row in registers (h_fixed_kernel<T, kSlots, kChunks>):
+# lanes hold runs of n = 2r + 1 samples in chunks of 4, 8, 16, 24, 28, 32 or
+# 48 registers (H_WARP_RUNS), so each run of radii ends where the next begins
+# (r 1 | 2-3 | 4-7 | 8-11 | 12-13 | 14-15 | 16-23 | 24: the block design); the rows
+# it takes end at the widest whose runs, with passes * r samples of margin
+# on each side, fit the lanes (one sample wider takes the block design);
+# the rows are read and written by 16-byte copies where w * size % 16 == 0
+# and the plane is on 16 bytes, by elements else (offset views)
+@pytest.mark.parametrize("layout", ["aligned", "offset"])
+@pytest.mark.parametrize("dtype", [torch.uint8, torch.uint16], ids=str)
+@pytest.mark.parametrize("r", [1, 2, 3, 4, 7, 8, 11, 12, 13, 14, 15, 16, 23, 24])
+def test_h_fixed_warp_matches_plain_at_its_edges(cuda, r, dtype, layout):
+    widths = sorted({w for p in (1, 6) for w in (_widest_in_registers(r, p),
+                                                  _widest_in_registers(r, p) + 1)} | {1920})
+    for w in widths:
+        x = _rand((2, 5, w), dtype, cuda, seed=w + r)
+        if layout == "offset":
+            x = _offset(x)
+        for p in range(1, 7):
+            kb.reset_launches()
+            got = kb.rt_blur_h(x, r, p)
+            variant = _h_fixed_variant(w, r, p)
+            assert kb.VARIANTS[variant] == 1 and sum(kb.VARIANTS.values()) == 1, (w, p)
+            assert _same(got, kb.h_fixed_ref(x, r, p)), (w, p, variant)
+
+
+@pytest.mark.parametrize("dtype", [torch.uint8, torch.uint16], ids=str)
+@pytest.mark.parametrize("w,r", [(1, 1), (2, 1), (5, 5), (5, 6), (12, 13), (23, 23), (22, 23)],
+                         ids=str)
+def test_h_fixed_warp_leaves_windows_wider_than_the_row_to_the_block_design(cuda, dtype, w, r):
+    # r <= w runs in registers; r > w is the comptime quirk's periodic mirror
+    x = _rand((3, 4, w), dtype, cuda, seed=r)
+    for p in range(1, 7):
+        kb.reset_launches()
+        got = kb.rt_blur_h(x, r, p)
+        assert kb.VARIANTS[_h_fixed_variant(w, r, p)] == 1
+        assert (r <= w) is kb.h_fixed_in_registers(w, r, p)
+        assert _same(got, kb.h_fixed_ref(x, r, p)), p
+
+
+def test_h_fixed_in_registers_is_the_librarys_rule(cuda):
+    # kernels/boxblur.py's mirror of csrc/boxblur.cu h_warp_shape, which
+    # launch_h_fixed follows
+    lib = kb._lib()
+    for r in range(1, 26):
+        for p in range(1, 8):
+            for w in sorted({1, 2, r - 1, r, r + 1, 960, 1920, 3840} | set(range(1900, 3000, 7))):
+                if w >= 1:
+                    assert bool(lib.vz_h_fixed_in_registers(w, r, p)) is \
+                        kb.h_fixed_in_registers(w, r, p), (w, r, p)
 
 
 def _smooth_u8(shape, device, seed):

@@ -29,8 +29,14 @@
 // int32/int64 arithmetic.  h_fixed's first design, one warp per row and a
 // prefix sum built 32 values at a time by a chain of dependent shuffles
 // (62 steps per 1920-wide row and pass), was held by that chain's latency,
-// not by its work; it now cuts each row into one segment per thread of a
-// block, so the only scan is one per row and pass (see h_fixed_kernel).
+// not by its work.  Its second, a block per row cut into one segment per
+// thread, spent each extra pass in shared memory (about 6 accesses and 3
+// block barriers a sample and pass).  Rows up to about 2,000 samples at
+// r <= 23 now run one warp a row with the row in registers for all passes
+// (h_fixed_kernel<T, kSlots, kChunks>): lanes hold runs of exactly 2r + 1
+// samples, so a window's two ends sit in the same register of neighbouring
+// runs and every pass is a 3-input add, a multiply-add and a shift a sample;
+// other rows keep the block design (h_fixed_kernel<T, kGlobal>).
 // v_fixed's column walk, one thread per column, rows loaded 8 ahead and
 // every pass through device memory, reached about 1.3 TB/s and read and
 // wrote the plane once per pass: v_chip runs all passes of a 128-byte
@@ -75,6 +81,33 @@ constexpr int kGroupRows = 4;
 constexpr int kAheadGroups = 4;
 constexpr int kChipAheadRows = (kAheadGroups + 1) * kGroupRows;
 constexpr int kStripBytes = 128;
+// h_fixed in registers: warps (rows in flight) per block, and its runs:
+// {slots, chunks, blocks} holds n = 2r + 1 <= slots samples in each of up
+// to `chunks` chunks a lane, with at least `blocks` blocks an SM (which caps
+// ptxas' registers; the 4-slot run spills at its default of 128); the first
+// run whose slots take n is used (kernels/boxblur.py H_WARP_RUNS holds the
+// same slots and chunks).
+constexpr int kRowWarps = 4;
+constexpr int kWarpRuns[][3] = {{4, 22, 1}, {8, 13, 3}, {16, 8, 2}, {24, 4, 3},
+                                {28, 3, 3}, {32, 3, 2}, {48, 2, 2}};
+
+// The least blocks an SM of the run with `slots`, and the least n = 2r + 1
+// it takes (the odd number past the run before): slots below it always hold
+// a sample.
+__host__ __device__ constexpr int warp_run_blocks(int slots) {
+  for (const auto& run : kWarpRuns) {
+    if (run[0] == slots) return run[2];
+  }
+  return 1;
+}
+__host__ __device__ constexpr int warp_run_live(int slots) {
+  int before = 2;
+  for (const auto& run : kWarpRuns) {
+    if (run[0] == slots) break;
+    before = run[0];
+  }
+  return (before + 1) | 1;
+}
 
 __device__ __forceinline__ int mirror_dup(int k, int n) {
   return k < 0 ? -k - 1 : (k >= n ? 2 * n - 1 - k : k);
@@ -457,10 +490,12 @@ __device__ __forceinline__ uint32_t fixed_out_u(long long k0, uint32_t inv2, uin
   return (T)(int)((k0 + (long long)((unsigned long long)inv2 * wx)) >> 16);
 }
 
-// One block per row at a time, a persistent grid striding over the rows.
-// The mirror-padded row sits in shared memory (HShape's layout), written
-// once from device memory: its interior by 16-byte (uint8: 8-byte) loads
-// where the row allows them, the pad by mirrored scalar loads; the next
+// h_fixed's block design, for the rows h_warp_shape leaves (longer rows,
+// r > 23, the comptime quirk r > w): one block per row at a time, a
+// persistent grid striding over the rows.  The mirror-padded row sits in
+// shared memory (HShape's layout), written once from device memory: its
+// interior by 16-byte (uint8: 8-byte) loads where the row allows them, the
+// pad by mirrored scalar loads; the next
 // row's loads are in flight while this row's passes run.  Each pass cuts
 // the padded row into segments of 8 samples, one per thread and round:
 // - thread k sums its segment;
@@ -630,6 +665,199 @@ __global__ void __launch_bounds__(kMaxRowThreads)
       uint32_t* t = cur;
       cur = nxt;
       nxt = t;
+    }
+  }
+}
+
+// h_fixed's register design for a row (launch_h_fixed's h_warp_shape):
+// `chunks` runs of n = 2r + 1 samples a lane; cell s of the warp (lane l,
+// chunk c, slot i < n: s = (l * chunks + c) * n + i) holds sample s - a of
+// the mirrored row before the first pass; lane l0's first run starts at
+// sample -r.
+struct HWarp {
+  int w, r, chunks, l0, a, passes;
+};
+
+template <typename T>
+__device__ __forceinline__ uint32_t out_bits(uint32_t x) {
+  return sizeof(T) == 2 ? x >> 16 : (x >> 16) & 0xffu;
+}
+
+// One warp a row, all passes in registers.  Lane l holds `chunks`
+// consecutive runs of n = 2r + 1 samples, one run a chunk of kSlots
+// registers (slots n .. kSlots-1 hold 0 for good), so the window of 2r + 1
+// samples starting at a cell ends in the same slot of the next run: the
+// next chunk of the lane, or the next lane's first chunk (one shuffle).
+// Passes alternate:
+// - even passes give each cell the window that starts there (output u + r
+//   at input u's cell), sliding forward through the lane's runs from the
+//   first run's sum;
+// - odd passes give each cell the window that ends there (output u - r),
+//   sliding backward from the last run's sum, its trail one run back (the
+//   previous lane's last chunk for the first).
+// So cells drift by r and back, and W(0), which every output's fixed point
+// takes, is the sum of lane l0's first run in even passes; in odd passes,
+// where that run starts at sample 0, it is x_r + 2 (x_0 + .. + x_{r-1}) of
+// it by the mirror.  The cells hold the row's mirror-periodic extension
+// (the duplicate-edge mirror repeated), on which each pass gives the
+// mirror-periodic extension of its output, so no pass mirrors anything:
+// cells past the row carry the margins (a >= passes * r samples before,
+// passes * r after), and only the cells nearest the warp's ends read across
+// them and go wrong, 2r a pass at one end, all inside those margins.  A
+// running sum telescopes, so it is exact wherever its window is (uint32,
+// r < 32768).  The output (C0 + inv2*(W - W0)) >> 16 cast to T is
+// bits 16.. of k0 + inv2*W with k0 = C0 - inv2*W0 taken mod 2^32: a 3-input
+// add, a multiply-add and a shift a sample and pass.  Device memory: the
+// row is copied into a per-warp buffer by 16-byte cp.async (element loads
+// where rows are not on 16 bytes) while the previous row's passes run, its
+// margins are mirrored there, and the output leaves through the same
+// buffer by 16-byte stores.  Idle chunks (c < kChunks - chunks) are skipped
+// by warp-uniform branches; the last idle one, if any, holds the previous
+// lane's last chunk in odd passes.
+template <typename T, int kSlots, int kChunks>
+__global__ void __launch_bounds__(kRowWarps * 32, warp_run_blocks(kSlots))
+    h_fixed_kernel(const T* __restrict__ in, T* __restrict__ out, long long rows, HWarp hw,
+                   bool vec, long long inv, uint32_t inv2) {
+  constexpr unsigned kAll = 0xffffffffu;
+  constexpr int kLive = warp_run_live(kSlots);      // slots 0 .. kLive-1 hold samples
+  constexpr int kBuf = 32 * kChunks * kSlots + 64;  // samples of a row buffer
+  constexpr int E = 16 / sizeof(T);                 // samples a 16-byte copy
+  extern __shared__ uint4 rowbufs[];
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  T* const bufs = reinterpret_cast<T*>(rowbufs) + 2 * kBuf * warp;
+  const int w = hw.w, r = hw.r, n = 2 * r + 1, c0 = kChunks - hw.chunks, pr = hw.passes * r;
+  // a row buffer holds sample 0 at padl, on 16 bytes, and this lane's first
+  // cell at base
+  const int padl = (hw.a + 15) & ~15, base = lane * hw.chunks * n - hw.a + padl;
+  const long long stride = (long long)gridDim.x * kRowWarps;
+  auto issue = [&](long long row, T* b) {
+    if (row < rows) {
+      const T* src = in + row * w;
+      for (int k = lane; k < w / E; k += 32) cp_async16(b + padl + k * E, src + k * E);
+    }
+    cp_async_commit();
+  };
+  uint32_t a[kChunks][kSlots];
+  long long row = (long long)blockIdx.x * kRowWarps + warp;
+  if (vec) issue(row, bufs);
+  for (int cur = 0; row < rows; row += stride, cur ^= 1) {
+    T* const b = bufs + cur * kBuf;
+    if (vec) {
+      cp_async_wait<0>();
+    } else {
+      for (int q = lane; q < w; q += 32) b[padl + q] = in[row * w + q];
+    }
+    __syncwarp();
+    for (int j = lane; j < 2 * pr; j += 32) {
+      const int u = j < pr ? -1 - j : w + j - pr;
+      int m = u < 0 ? -1 - u : 2 * w - 1 - u;  // one reflection, unless pr > w
+      if ((unsigned)m >= (unsigned)w) m = mirror_periodic(u, w);
+      b[padl + u] = b[padl + m];
+    }
+    __syncwarp();
+    if (vec) issue(row + stride, bufs + (cur ^ 1) * kBuf);
+#pragma unroll
+    for (int c = 0; c < kChunks; ++c) {
+      if (c >= c0) {
+        const T* q = b + base + (c - c0) * n;
+#pragma unroll
+        for (int i = 0; i < kSlots; ++i) a[c][i] = i < kLive || i < n ? (uint32_t)q[i] : 0u;
+      }
+    }
+    for (int p = 0; p < hw.passes; ++p) {
+      uint32_t wx = 0, t = 0, ends[kSlots];
+      if ((p & 1) == 0) {
+        // the first run's sum starts the slide; the last chunk's leads are
+        // the next lane's first run
+#pragma unroll
+        for (int c = 0; c < kChunks; ++c) {
+          if (c == c0) {
+#pragma unroll
+            for (int i = 0; i < kSlots; ++i) {
+              wx += a[c][i];
+              ends[i] = __shfl_down_sync(kAll, a[c][i], 1);
+            }
+          }
+        }
+        const uint32_t w0 = __shfl_sync(kAll, wx, hw.l0);
+        const uint32_t k0 = (uint32_t)(fixed_c0(w0, inv) - (long long)inv2 * w0);
+#pragma unroll
+        for (int c = 0; c < kChunks; ++c) {
+          if (c >= c0) {
+#pragma unroll
+            for (int i = 0; i < kSlots; ++i) {
+              const uint32_t lead = c + 1 < kChunks ? a[c + 1 < kChunks ? c + 1 : c][i] : ends[i];
+              const uint32_t o = out_bits<T>(k0 + inv2 * wx);
+              wx += lead - a[c][i];
+              if (i < kLive || i < n) a[c][i] = o;
+            }
+          }
+        }
+      } else {
+        // W(0) from lane l0's first run (samples 0 .. 2r): r < kSlots / 2
+#pragma unroll
+        for (int c = 0; c < kChunks; ++c) {
+          if (c == c0) {
+#pragma unroll
+            for (int i = 0; i < kSlots / 2; ++i) {
+              if (i < r) t += a[c][i];
+              if (i <= r) t += a[c][i];
+            }
+          }
+        }
+        const uint32_t w0 = __shfl_sync(kAll, t, hw.l0);
+        const uint32_t k0 = (uint32_t)(fixed_c0(w0, inv) - (long long)inv2 * w0);
+        // the last run's sum starts the slide; the first chunk's trails are
+        // the previous lane's last run, in `ends` or the idle chunk before
+#pragma unroll
+        for (int i = 0; i < kSlots; ++i) wx += a[kChunks - 1][i];
+        if (c0 == 0) {
+#pragma unroll
+          for (int i = 0; i < kSlots; ++i) ends[i] = __shfl_up_sync(kAll, a[kChunks - 1][i], 1);
+        } else {
+#pragma unroll
+          for (int c = 0; c + 1 < kChunks; ++c) {
+            if (c + 1 == c0) {
+#pragma unroll
+              for (int i = 0; i < kSlots; ++i) {
+                a[c][i] = __shfl_up_sync(kAll, a[kChunks - 1][i], 1);
+              }
+            }
+          }
+        }
+#pragma unroll
+        for (int c = kChunks - 1; c >= 0; --c) {
+          if (c >= c0) {
+#pragma unroll
+            for (int i = kSlots - 1; i >= 0; --i) {
+              const uint32_t trail = c == 0 ? ends[i] : a[c > 0 ? c - 1 : 0][i];
+              const uint32_t o = out_bits<T>(k0 + inv2 * wx);
+              wx += trail - a[c][i];
+              if (i < kLive || i < n) a[c][i] = o;
+            }
+          }
+        }
+      }
+    }
+    // an odd pass count leaves sample u at the cell of u - r
+    const int shift = (hw.passes & 1) ? r : 0;
+#pragma unroll
+    for (int c = 0; c < kChunks; ++c) {
+      if (c >= c0) {
+        T* q = b + base + (c - c0) * n + shift;
+#pragma unroll
+        for (int i = 0; i < kSlots; ++i) {
+          if (i < kLive || i < n) q[i] = (T)a[c][i];
+        }
+      }
+    }
+    __syncwarp();
+    if (vec) {
+      uint4* dst = reinterpret_cast<uint4*>(out + row * w);
+      const uint4* src = reinterpret_cast<const uint4*>(b + padl);
+      for (int k = lane; k < w / E; k += 32) dst[k] = src[k];
+    } else {
+      for (int q = lane; q < w; q += 32) out[row * w + q] = b[padl + q];
     }
   }
 }
@@ -809,11 +1037,71 @@ cudaError_t resident_blocks(const void* kernel, int threads, size_t bytes, long 
   return cudaSuccess;
 }
 
+// h_fixed's register design for rows of w samples at radius r and `passes`
+// (r <= w, no periodic quirk): the first run of kWarpRuns whose slots take
+// n = 2r + 1, with the fewest chunks whose 32 lanes hold the row and its
+// margins (a >= passes * r before it, passes * r after); false where none
+// does, and the block design takes the rows (kernels/boxblur.py
+// h_fixed_warp_shape holds the same rule).
+bool h_warp_shape(int w, int r, int passes, int* slots, HWarp* hw) {
+  if (r < 1 || r > w || passes < 1) return false;
+  const long long n = 2LL * r + 1;
+  for (const auto& run : kWarpRuns) {
+    if (n > run[0]) continue;
+    for (long long c = 1; c <= run[1]; ++c) {
+      const long long l0 = ((long long)(passes - 1) * r + c * n - 1) / (c * n);
+      const long long a = l0 * c * n + r;
+      if (a + w + (long long)passes * r <= 32 * c * n) {
+        *slots = run[0];
+        *hw = {w, r, (int)c, (int)l0, (int)a, passes};
+        return true;
+      }
+    }
+    return false;
+  }
+  return false;
+}
+
+// kRowWarps rows in flight a block, a persistent grid of resident blocks.
+template <typename T, int kSlots, int kChunks>
+int launch_h_warp(const void* in, void* out, long long rows, const HWarp& hw, long long inv,
+                  uint32_t inv2, cudaStream_t s) {
+  void (*const kernel)(const T*, T*, long long, HWarp, bool, long long, uint32_t) =
+      h_fixed_kernel<T, kSlots, kChunks>;
+  const size_t bytes = (size_t)kRowWarps * 2 * (32 * kChunks * kSlots + 64) * sizeof(T);
+  long long blocks;
+  const cudaError_t e =
+      resident_blocks(reinterpret_cast<const void*>(kernel), kRowWarps * 32, bytes, &blocks);
+  if (e != cudaSuccess) return (int)e;
+  if (blocks * kRowWarps > rows) blocks = (rows + kRowWarps - 1) / kRowWarps;
+  if (blocks == 0) return 0;
+  // 16-byte copies where every row starts on 16 bytes, element loads else
+  const bool vec = (size_t)hw.w * sizeof(T) % 16 == 0 && (uintptr_t)in % 16 == 0 &&
+                   (uintptr_t)out % 16 == 0;
+  kernel<<<(unsigned)blocks, kRowWarps * 32, bytes, s>>>((const T*)in, (T*)out, rows, hw, vec,
+                                                          inv, (uint32_t)inv2);
+  return (int)cudaGetLastError();
+}
+
 template <typename T>
 int launch_h_fixed(const void* in, void* out, void* scratch, long long rows, int w, int r,
                    int passes, cudaStream_t s) {
   long long inv, inv2;
   fixed_constants(r, &inv, &inv2);
+  int slots;
+  HWarp hw;
+  if (h_warp_shape(w, r, passes, &slots, &hw)) {
+    static_assert(sizeof(kWarpRuns) / sizeof(kWarpRuns[0]) == 7, "one case a run");
+#define VZ_RUN(k)                                                                 \
+  case kWarpRuns[k][0]:                                                           \
+    return launch_h_warp<T, kWarpRuns[k][0], kWarpRuns[k][1]>(in, out, rows, hw, inv, \
+                                                              (uint32_t)inv2, s);
+    switch (slots) {
+      VZ_RUN(0) VZ_RUN(1) VZ_RUN(2) VZ_RUN(3) VZ_RUN(4) VZ_RUN(5) VZ_RUN(6)
+      default: return (int)cudaErrorInvalidValue;
+    }
+#undef VZ_RUN
+  }
   const HShape hs = h_shape(w, r);
   // vector loads and stores: 8 samples per chunk, rows on 16-byte (uint8:
   // 8-byte) boundaries
@@ -829,13 +1117,15 @@ int launch_h_fixed(const void* in, void* out, void* scratch, long long rows, int
   }
   // persistent: as many blocks as stay resident, each striding over rows
   const size_t bytes = hs.block_words() * sizeof(uint32_t);
+  void (*const kernel)(const T*, T*, long long, int, int, int, HShape, bool, long long, int,
+                       uint32_t*) = h_fixed_kernel<T, false>;
   long long blocks;
-  const cudaError_t e = resident_blocks(reinterpret_cast<const void*>(h_fixed_kernel<T, false>),
-                                        hs.threads, bytes, &blocks);
+  const cudaError_t e =
+      resident_blocks(reinterpret_cast<const void*>(kernel), hs.threads, bytes, &blocks);
   if (e != cudaSuccess) return (int)e;
   if (blocks > rows) blocks = rows;
-  h_fixed_kernel<T, false><<<(unsigned)blocks, hs.threads, bytes, s>>>(
-      (const T*)in, (T*)out, rows, w, r, passes, hs, vec, inv, (int)inv2, nullptr);
+  kernel<<<(unsigned)blocks, hs.threads, bytes, s>>>((const T*)in, (T*)out, rows, w, r, passes,
+                                                     hs, vec, inv, (int)inv2, nullptr);
   return (int)cudaGetLastError();
 }
 
@@ -933,6 +1223,14 @@ int vz_v_chip(const void* in, void* out, int elem_bytes, int n, int h, int w, in
 // The uint32 words of scratch vz_h_fixed needs (0: none; pass null).
 long long vz_h_fixed_scratch_words(long long rows, int w, int r) {
   return h_fixed_scratch_words(rows, w, r);
+}
+
+// 1 where vz_h_fixed runs rows of w at radius r and `passes` one warp a row
+// in registers, 0 where it runs the block design.
+int vz_h_fixed_in_registers(int w, int r, int passes) {
+  int slots;
+  HWarp hw;
+  return h_warp_shape(w, r, passes, &slots, &hw) ? 1 : 0;
 }
 
 int vz_h_fixed(const void* in, void* out, void* scratch, int elem_bytes, long long rows,

@@ -32,11 +32,16 @@ copies 16 rows ahead), so the plane is read and written once per call;
 where its rings would not fit a block's shared memory, or for more than
 ``V_CHIP_PASSES`` passes (``v_fixed_on_chip``), ``v_fixed`` walks one column
 per thread and ping-pongs the passes through device memory.  ``h_fixed``
-puts one mirror-padded row per block in shared memory, cuts it into
-segments of 8 samples, one per thread (segment sums, one block scan,
-sliding sums along each segment), and runs all passes there (a row too long
-for shared memory uses a global scratch buffer that the wrapper allocates,
-with the same arithmetic).  ``ct_v_chip`` is ``v_chip``'s one-pass case
+runs one warp a row with the row in registers for all passes where
+``h_fixed_in_registers`` says so (rows up to about 2,000 samples, r <= 23):
+each lane holds runs of exactly 2r + 1 samples, so a window's two ends sit
+in the same register of neighbouring runs, and a pass is a 3-input add, a
+multiply-add and a shift a sample, with no shared memory and no barrier.
+Other rows take its block design: one mirror-padded row per block in shared
+memory, cut into segments of 8 samples, one per thread (segment sums, one
+block scan, sliding sums along each segment), all passes there (a row too
+long for shared memory uses a global scratch buffer that the wrapper
+allocates, with the same arithmetic).  ``ct_v_chip`` is ``v_chip``'s one-pass case
 with the comptime (hybrid) mirror, under which every row's window slides
 from the one before, and the quantiser ``(2*col + k) // (2k)`` as a
 multiply-high by the per-call (m, s) of ``quantizer``.  Its ring holds
@@ -60,11 +65,12 @@ from .. import _build, trace
 LAUNCHES = trace.register_launches({"ct_blur_int": 0, "rt_blur_h": 0, "rt_blur_v_multi": 0,
                                     "rt_blur_v": 0})
 # The variant each CUDA launch of ``v_fixed`` and ``h_fixed`` took: the
-# on-chip ``v_chip`` or the column walk ``v_fixed``; ``h_fixed`` with its
-# row in shared memory or in a global scratch buffer.  ``ct_blur_int``'s
+# on-chip ``v_chip`` or the column walk ``v_fixed``; ``h_fixed`` one warp a
+# row in registers (``h_fixed_in_registers``), or a block a row with the row
+# in shared memory or in a global scratch buffer.  ``ct_blur_int``'s
 # horizontal stage counts here too; its vertical stage is ``ct_v_chip``.
-VARIANTS = trace.register_launches({"v_chip": 0, "v_fixed": 0, "h_fixed_shared": 0,
-                                    "h_fixed_scratch": 0})
+VARIANTS = trace.register_launches({"v_chip": 0, "v_fixed": 0, "h_fixed_warp": 0,
+                                    "h_fixed_shared": 0, "h_fixed_scratch": 0})
 
 
 def reset_launches() -> None:
@@ -88,6 +94,43 @@ def v_fixed_on_chip(radius: int, passes: int) -> bool:
     the wrapper takes the column walk ``v_fixed``."""
     rows = passes * (2 * radius + 1) + V_CHIP_AHEAD_ROWS
     return passes <= V_CHIP_PASSES and rows * V_CHIP_ROW_BYTES <= MAX_SMEM_BYTES
+
+
+# ``h_fixed`` in registers (csrc/boxblur.cu kWarpRuns): (slots, chunks) runs;
+# a lane holds up to `chunks` runs of n = 2r + 1 <= slots samples, one a
+# chunk of `slots` registers, and the first run whose slots take n is used.
+H_WARP_RUNS = ((4, 22), (8, 13), (16, 8), (24, 4), (28, 3), (32, 3), (48, 2))
+
+
+@lru_cache(maxsize=256)
+def h_fixed_warp_shape(w: int, radius: int, passes: int = 1):
+    """(slots, chunks of the run, chunks a lane, l0, a) of ``h_fixed``'s
+    register design for rows of `w` samples, or None where the block design
+    takes them: the fewest chunks whose 32 lanes of runs of n = 2r + 1 hold
+    the row with `a` >= passes * r samples of its mirror-periodic extension
+    before it (lane `l0`'s first run starting at sample -r) and passes * r
+    after it.  None past the runs (r > 23), where no chunk count of the
+    first run taking n holds the row, and where r > w (the comptime quirk)
+    (``h_warp_shape`` in csrc/boxblur.cu)."""
+    if not 1 <= radius <= w or passes < 1:
+        return None
+    n = 2 * radius + 1
+    for slots, chunks_max in H_WARP_RUNS:
+        if n > slots:
+            continue
+        for chunks in range(1, chunks_max + 1):
+            l0 = -(-(passes - 1) * radius // (chunks * n))
+            a = l0 * chunks * n + radius
+            if a + w + passes * radius <= 32 * chunks * n:
+                return slots, chunks_max, chunks, l0, a
+        return None
+    return None
+
+
+def h_fixed_in_registers(w: int, radius: int, passes: int = 1) -> bool:
+    """Whether ``h_fixed`` runs rows of `w` samples at `radius` and `passes`
+    one warp a row in registers; else its block design."""
+    return h_fixed_warp_shape(w, radius, passes) is not None
 
 
 def quantizer(radius: int) -> tuple[int, int]:
@@ -217,6 +260,8 @@ def _lib() -> ctypes.CDLL:
     lib.vz_h_fixed.argtypes = [p, p, p, i, ll, i, i, i, p]
     lib.vz_h_fixed_scratch_words.argtypes = [ll, i, i]
     lib.vz_h_fixed_scratch_words.restype = ll
+    lib.vz_h_fixed_in_registers.argtypes = [i, i, i]
+    lib.vz_h_fixed_in_registers.restype = i
     lib.vz_ct_v_chip.argtypes = [p, p, i, i, i, i, i, ctypes.c_uint, i, p]
     for fn in (lib.vz_v_fixed, lib.vz_v_chip, lib.vz_h_fixed, lib.vz_ct_v_chip):
         fn.restype = ctypes.c_int
@@ -278,7 +323,8 @@ def _h_fixed(x: torch.Tensor, radius: int, passes: int) -> torch.Tensor:
         _build.check(_lib().vz_h_fixed, x.data_ptr(), out.data_ptr(),
                      None if scratch is None else scratch.data_ptr(), x.element_size(),
                      n * h, w, radius, passes, _build.stream(x))
-    VARIANTS["h_fixed_scratch" if words else "h_fixed_shared"] += 1
+    VARIANTS["h_fixed_warp" if h_fixed_in_registers(w, radius, passes)
+             else "h_fixed_scratch" if words else "h_fixed_shared"] += 1
     return out
 
 
