@@ -30,6 +30,7 @@ import torch
 
 from test_bilateral_dither import _oracle
 from vszip_tpu.ops import bilateral_dither_points as jpts
+from vszip_tpu_torch import trace
 from vszip_tpu_torch.kernels import bilateral_dither as kb
 from vszip_tpu_torch.ops import bilateral_dither_points as tpts
 
@@ -189,7 +190,7 @@ def test_plain_versions_match_literal_oracle(dtype, has_ref, path):
 
 
 def test_wrappers_take_plain_versions_on_cpu():
-    kb.reset_launches()
+    trace.reset_launches()
     x = torch.from_numpy(smooth_plane(torch.uint16, 1, 20, 24, 3))
     m, wmax, swmin, peak = PARAMS[torch.uint16]
     pts, _ = tpts.generate(4, 4, 0.0)

@@ -304,7 +304,7 @@ def test_the_window_kernel_is_a_launch_counter():
     try:
         kbl.LAUNCHES["bilateral_window"] += 2
         assert view["bilateral_window"] == saved + 2
-        kbl.reset_launches()
+        trace.reset_launches()
         assert view["bilateral_window"] == 0
     finally:
         kbl.LAUNCHES["bilateral_window"] = saved

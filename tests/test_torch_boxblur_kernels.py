@@ -16,6 +16,7 @@ import jax.numpy as jnp
 
 from vszip_tpu.kernels import boxblur_pallas as kp
 from vszip_tpu.ops.boxblur import _blur_int_rt_1d, _ct_blur_int
+from vszip_tpu_torch import trace
 from vszip_tpu_torch.kernels import boxblur as kt
 
 
@@ -109,7 +110,7 @@ def test_giant_plane_takes_int64_sums():
 
 def test_wrappers_take_plain_version_on_cpu_without_counting():
     x = torch.from_numpy(_rand((2, 30, 41), np.uint16, 1))
-    kt.reset_launches()
+    trace.reset_launches()
     assert torch.equal(kt.ct_blur_int(x, 4), kt.ct_blur_int_ref(x, 4))
     assert torch.equal(kt.rt_blur_h(x, 4, 3), kt.h_fixed_ref(x, 4, 3))
     assert torch.equal(kt.rt_blur_v_multi(x, 4, 3), kt.v_fixed_ref(x, 4, 3))
@@ -151,8 +152,8 @@ def test_v_fixed_takes_the_column_walk_past_the_rings(radius, passes, on_chip):
 
 
 def test_h_fixed_warp_runs_are_the_kernels():
-    # kernels/boxblur.py H_WARP_RUNS mirrors csrc/boxblur.cu kWarpRuns, which
-    # launch_h_fixed's h_warp_shape reads
+    # kernels/boxblur.py H_WARP_RUNS mirrors csrc/boxblur.cu kWarpRuns, whose
+    # instantiations vz_h_fixed_warp launches on the run the wrapper chose
     import re
     from pathlib import Path
 

@@ -44,6 +44,7 @@ import torch
 import vszip_tpu_torch as vt
 from portbench.reference import boxblur_rt
 from portbench.traffic import frames as bench_frames
+from vszip_tpu_torch import trace
 from vszip_tpu_torch.kernels import bilateral as kbl
 from vszip_tpu_torch.kernels import bilateral_dither as kbd
 from vszip_tpu_torch.kernels import boxblur as kb
@@ -205,7 +206,7 @@ def test_ct_blur_int_matches_plain_at_its_largest_ring(cuda, dtype, h):
 
 def test_ct_blur_int_raises_past_its_ring(cuda):
     x = _rand((1, 1800, 144), torch.uint16, cuda)
-    kb.reset_launches()
+    trace.reset_launches()
     with pytest.raises(ValueError, match="radius <= 897"):
         kb.ct_blur_int(x, 898)
     assert kb.LAUNCHES["ct_blur_int"] == 0
@@ -222,7 +223,7 @@ def test_ct_blur_int_takes_planes_off_16_byte_alignment(cuda, dtype):
 @pytest.mark.parametrize("r", [13, 897])
 def test_ct_blur_int_counts_one_launch_a_call(cuda, r):
     x = _rand((1, 2 * r + 3, 64), torch.uint16, cuda, seed=r)
-    kb.reset_launches()
+    trace.reset_launches()
     kb.ct_blur_int(x, r)
     kb.ct_blur_int(x, r)
     assert kb.LAUNCHES == {"ct_blur_int": 2, "rt_blur_h": 0, "rt_blur_v_multi": 0,
@@ -259,7 +260,7 @@ def test_boxblur_on_card_matches_cpu(cuda, args):
     planes = [rng.integers(0, 1 << 16, (2,) + fmt.plane_dims(192, 128, p)[::-1],
                            dtype=np.uint16) for p in range(3)]
     cpu = vt.Clip.from_planes(planes, fmt, device="cpu")
-    kb.reset_launches()
+    trace.reset_launches()
     got = vt.limiter(vt.boxblur(cpu.to(cuda), **args), tv_range=True)
     assert sum(kb.LAUNCHES.values()) > 0
     want = vt.limiter(vt.boxblur(cpu, **args), tv_range=True)
@@ -280,7 +281,7 @@ def test_boxblur_5pass_1080p_matches_the_benchmark_reference_through_v_chip_and_
     planes = bench_frames.make_planes(2**31 + 99, 8, [tuple(s) for s in cfg["planes"]],
                                       cfg["bits"], cuda)
     clip = vt.Clip.from_planes(planes, vt.get_format(cfg["format"]))
-    kb.reset_launches()
+    trace.reset_launches()
     got = vt.boxblur(clip, **cfg["args"])
     torch.cuda.synchronize()
     assert {k: n for k, n in kb.LAUNCHES.items() if n} == {"rt_blur_h": 3, "rt_blur_v_multi": 3}
@@ -303,7 +304,7 @@ def test_a_profiled_boxblur_call_shows_its_ranges_and_no_extra_device_work(cuda)
     clip = vt.Clip.from_planes(planes, fmt, device=cuda)
     vt.boxblur(clip, hradius=13, vradius=13)   # builds and warms up outside the trace
     torch.cuda.synchronize()
-    kb.reset_launches()
+    trace.reset_launches()
     acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
     with torch.profiler.profile(activities=acts) as prof:
         vt.boxblur(clip, hradius=13, vradius=13)
@@ -439,7 +440,7 @@ def test_deband_m2_takes_planes_off_16_byte_alignment(cuda, w):
 def test_deband_m2_counts_one_launch_a_call(cuda, rmax):
     x = _rand((2, 40, 50), torch.uint16, cuda, seed=rmax)
     key = _m2_key(40, 50, rmax, cuda, seed=rmax)
-    kd.reset_launches()
+    trace.reset_launches()
     kd.deband_m2_center(x, key, True, rmax, 900)
     kd.deband_m2_center(x, key, False, rmax, 900)
     assert kd.LAUNCHES == {"deband_center": 0, "deband_m2_center": 2}
@@ -460,7 +461,7 @@ def test_deband_on_card_matches_cpu(cuda, fmt, args):
                            (2,) + f.plane_dims(272, 160, p)[::-1]).astype(f.storage_dtype)
               for p in range(f.num_planes)]
     cpu = vt.Clip.from_planes(planes, f, device="cpu")
-    kd.reset_launches()
+    trace.reset_launches()
     got = vt.deband(cpu.to(cuda), **args)
     assert sum(kd.LAUNCHES.values()) > 0  # every case runs B5 or B6 on some plane
     want = vt.deband(cpu, **args)
@@ -532,7 +533,7 @@ def test_clahe_on_card_matches_cpu(cuda, fmt, args):
                            (2,) + f.plane_dims(193, 131, p)[::-1]).astype(f.storage_dtype)
               for p in range(f.num_planes)]
     cpu = vt.Clip.from_planes(planes, f, device="cpu")
-    kc.reset_launches()
+    trace.reset_launches()
     got = vt.clahe(cpu.to(cuda), **args)
     assert kc.LAUNCHES["clahe8_lookup"] == (f.num_planes if f.bits_per_sample == 8 else 0)
     want = vt.clahe(cpu, **args)
@@ -719,7 +720,7 @@ def test_eedi3_on_card_matches_cpu(cuda, fn, fmt, args):
         m = (rng.random((2, 64, 96)) > 0.4).astype(np.uint8) * 255
         mclip = vt.Clip.from_planes([m], vt.get_format("GRAY8"), device="cpu")
         args["mclip"] = mclip
-    ke.reset_launches()
+    trace.reset_launches()
     card_args = dict(args, mclip=mclip.to(cuda)) if mclip is not None else args
     got = getattr(vt, fn)(cpu.to(cuda), **card_args)
     hp_mask = args.get("hp") and mclip is not None
@@ -938,7 +939,7 @@ def _metric_clip(fmt, n, h, w, seed, device):
 ], ids=str)
 def test_xpsnr_on_card_matches_cpu(cuda, fmt, h, w, fps, launches):
     c1, c2 = _metric_clip(fmt, 3, h, w, 1, "cpu")
-    kx.reset_launches()
+    trace.reset_launches()
     got = vt.xpsnr(c1.to(cuda), c2.to(cuda), fps=fps)
     assert (kx.LAUNCHES["luma_stats"], kx.LAUNCHES["chroma_sse"]) == launches
     want = vt.xpsnr(c1, c2, fps=fps)
@@ -966,7 +967,7 @@ def test_xpsnr_on_card_takes_strided_planes(cuda, layout):
         assert not any(q.is_contiguous() for q in planes)
         return vt.Clip.from_planes(planes, c.format, device=cuda)
 
-    kx.reset_launches()
+    trace.reset_launches()
     got = vt.xpsnr(strided(c1), strided(c2), fps=24)
     assert (kx.LAUNCHES["luma_stats"], kx.LAUNCHES["chroma_sse"]) == (1, 1)
     want = vt.xpsnr(c1, c2, fps=24)
@@ -983,7 +984,7 @@ def test_xpsnr_on_card_takes_strided_planes(cuda, layout):
 def test_ssimulacra2_on_card_matches_cpu(cuda, fmt, h, w, props, launches, rtol):
     c1, c2 = _metric_clip(fmt, 1, h, w, 2, "cpu")
     c1, c2 = c1.with_props(**props), c2.with_props(**props)
-    ks.reset_launches()
+    trace.reset_launches()
     got = vt.ssimulacra2(c1.to(cuda), c2.to(cuda)).props["SSIMULACRA2"]
     assert ks.LAUNCHES["ssim_sums"] == launches
     want = vt.ssimulacra2(c1, c2).props["SSIMULACRA2"]
@@ -993,7 +994,7 @@ def test_ssimulacra2_on_card_matches_cpu(cuda, fmt, h, w, props, launches, rtol)
 
 def test_identical_ssimulacra2_on_card_is_100(cuda):
     c1, _ = _metric_clip("RGBS", 2, 1080, 1920, 3, cuda)
-    ks.reset_launches()
+    trace.reset_launches()
     out = vt.ssimulacra2(c1, c1).props["SSIMULACRA2"]
     assert ks.LAUNCHES["ssim_sums"] == 11
     assert out.cpu().tolist() == [100.0, 100.0]
@@ -1029,7 +1030,7 @@ def test_boxblur_rows_wider_than_shared_memory(cuda, dtype):
                            ({"hradius": 13, "hpasses": 5, "vradius": 1},
                             {"rt_blur_h": 1, "rt_blur_v": 1}),
                            ({"hradius": 1, "vradius": 1}, {"ct_blur_int": 1})):
-        kb.reset_launches()
+        trace.reset_launches()
         got = vt.boxblur(c, **args).planes[0]
         assert {k: n for k, n in kb.LAUNCHES.items() if n} == launches
         assert _same(got.cpu(), vt.boxblur(c.to("cpu"), **args).planes[0])
@@ -1085,7 +1086,7 @@ def test_h_fixed_warp_matches_plain_at_its_edges(cuda, r, dtype, layout):
         if layout == "offset":
             x = _offset(x)
         for p in range(1, 7):
-            kb.reset_launches()
+            trace.reset_launches()
             got = kb.rt_blur_h(x, r, p)
             variant = _h_fixed_variant(w, r, p)
             assert kb.VARIANTS[variant] == 1 and sum(kb.VARIANTS.values()) == 1, (w, p)
@@ -1099,23 +1100,71 @@ def test_h_fixed_warp_leaves_windows_wider_than_the_row_to_the_block_design(cuda
     # r <= w runs in registers; r > w is the comptime quirk's periodic mirror
     x = _rand((3, 4, w), dtype, cuda, seed=r)
     for p in range(1, 7):
-        kb.reset_launches()
+        trace.reset_launches()
         got = kb.rt_blur_h(x, r, p)
         assert kb.VARIANTS[_h_fixed_variant(w, r, p)] == 1
         assert (r <= w) is kb.h_fixed_in_registers(w, r, p)
         assert _same(got, kb.h_fixed_ref(x, r, p)), p
 
 
-def test_h_fixed_in_registers_is_the_librarys_rule(cuda):
-    # kernels/boxblur.py's mirror of csrc/boxblur.cu h_warp_shape, which
-    # launch_h_fixed follows
-    lib = kb._lib()
-    for r in range(1, 26):
-        for p in range(1, 8):
-            for w in sorted({1, 2, r - 1, r, r + 1, 960, 1920, 3840} | set(range(1900, 3000, 7))):
-                if w >= 1:
-                    assert bool(lib.vz_h_fixed_in_registers(w, r, p)) is \
-                        kb.h_fixed_in_registers(w, r, p), (w, r, p)
+# vz_h_fixed_warp runs the register design on the shape the wrapper chose
+# (kb.h_fixed_warp_shape); a shape that does not hold the row would write past
+# a warp's row buffer, so the library refuses it (cudaErrorInvalidValue).
+# Each refused case breaks one condition on its own: (w, r, passes, slots,
+# chunks, l0, a); the rule's own shapes at 1080p and at the last sample the
+# lanes hold run and equal the plain version
+@pytest.mark.parametrize("w,r,passes,slots,chunks,l0,a,holds", [
+    (1920, 13, 5, 28, 3, 1, 94, True),
+    (2433, 13, 5, 28, 3, 1, 94, True),
+    (1920, 13, 5, 30, 3, 1, 94, False),    # slots not a run
+    (1920, 13, 5, 24, 3, 1, 94, False),    # n = 27 past the run's slots
+    (1920, 13, 5, 32, 3, 1, 94, False),    # not the first run taking n
+    (1920, 13, 5, 28, 4, 1, 121, False),   # more chunks than the run has
+    (1920, 13, 5, 28, 3, 1, 95, False),    # a != l0 * chunks * n + r
+    (1920, 13, 5, 28, 3, 0, 13, False),    # a < passes * r
+    (2434, 13, 5, 28, 3, 1, 94, False),    # a + w + passes * r past the lanes
+    (12, 13, 1, 28, 1, 0, 13, False),      # r > w
+], ids=["1080p", "last_sample", "slots", "n_past_slots", "first_run", "chunks", "a_l0",
+        "margin_before", "margin_after", "r_past_w"])
+def test_h_fixed_warp_refuses_shapes_that_do_not_hold_the_row(cuda, w, r, passes, slots,
+                                                              chunks, l0, a, holds):
+    x = _rand((2, 3, w), torch.uint16, cuda, seed=w)
+    out = torch.zeros_like(x)
+
+    def launch():
+        kb._H_FIXED_WARP(x.device, x.data_ptr(), out.data_ptr(), 2, 6, w, r, passes, slots,
+                         chunks, l0, a)
+    if holds:
+        assert kb.h_fixed_warp_shape(w, r, passes) == (slots, 3, chunks, l0, a)
+        launch()
+        assert _same(out, kb.h_fixed_ref(x, r, passes))
+    else:
+        with pytest.raises(RuntimeError, match="vz_h_fixed_warp failed with CUDA error 1$"):
+            launch()
+        torch.cuda.synchronize()
+        assert int(out.count_nonzero()) == 0
+
+
+@pytest.mark.parametrize("case", ["v_chip", "ct_v_chip", "m2_tile"])
+def test_a_failing_entry_point_raises_naming_its_symbol(cuda, case):
+    """An entry point that returns a CUDA error raises RuntimeError naming its
+    symbol and the code (here cudaErrorInvalidValue: more passes than v_chip
+    unrolls, a ring or tile past a block's shared memory)."""
+    x = _rand((1, 64, 64), torch.uint16, cuda, seed=3)
+    out = torch.empty_like(x)
+    key = torch.zeros((64, 64), dtype=torch.int32, device=cuda)
+    centre = torch.empty((1, 64, 64), dtype=torch.int32, device=cuda)
+    symbol, launch = {
+        "v_chip": ("vz_v_chip", lambda: kb._V_CHIP(
+            x.device, x.data_ptr(), out.data_ptr(), 2, 1, 64, 64, 2, kb.V_CHIP_PASSES + 1)),
+        "ct_v_chip": ("vz_ct_v_chip", lambda: kb._CT_V_CHIP(
+            x.device, x.data_ptr(), out.data_ptr(), 2, 1, 64, 64, 898, *kb.quantizer(897))),
+        "m2_tile": ("vz_deband_m2_tile", lambda: kd._M2_TILE(
+            x.device, x.data_ptr(), key.data_ptr(), centre.data_ptr(), 1, 64, 64, 51, 1, 2)),
+    }[case]
+    with pytest.raises(RuntimeError, match=f"^vszip_tpu_torch: {symbol} failed with CUDA "
+                       "error 1$"):
+        launch()
 
 
 def _smooth_u8(shape, device, seed):
@@ -1281,7 +1330,7 @@ def test_integer_filters_on_card_match_cpu(cuda, op, fmt, args, launches, layout
         planes.append(big[..., 3:-3] if layout == "crop" else big[..., 3:-3].contiguous())
     c = vt.Clip.from_planes(planes, f, device=cuda)
     for m in (kz, kk, km):
-        m.reset_launches()
+        trace.reset_launches()
     got = getattr(vt, op)(c, **args)
     counts = {k: n for m in (kz, kk, km) for k, n in m.LAUNCHES.items() if n}
     assert counts == launches
@@ -1337,7 +1386,7 @@ def _bd_hold(x, ref, r, dyx):
     """B17 and B18 against their plain versions; each launches once."""
     c = _bd_consts(x.dtype)
     start = _bd_op._start_rows(x.shape[1], str(x.device))
-    kbd.reset_launches()
+    trace.reset_launches()
     got = kbd.dense_blur(x, ref, r, *c), kbd.subspl_blur(x, ref, r, start, dyx, *c)
     assert kbd.LAUNCHES == {"dense_blur": 1, "subspl_blur": 1}
     assert _same(got[0], kbd.dense_blur_ref(x, ref, r, *c))
@@ -1390,7 +1439,7 @@ def _bd_hold_subspl(x, ref, r, start, dyx, band=True):
     (or the 32x16 tile where `band` is False)."""
     c = _bd_consts(x.dtype)
     assert (kbd._subspl_band(x, ref, r, dyx.shape[1]) is not None) == band
-    kbd.reset_launches()
+    trace.reset_launches()
     got = kbd.subspl_blur(x, ref, r, start, dyx, *c)
     assert kbd.LAUNCHES["subspl_blur"] == 1
     assert _same(got, kbd.subspl_blur_ref(x, ref, r, start, dyx, *c))
@@ -1483,7 +1532,7 @@ def test_bilateral_dither_never_takes_the_plain_version_on_the_card(cuda, monkey
     c = vt.Clip.from_planes([_banded((1, max(16, r + 3), r + 20), torch.uint16, cuda, r)],
                             vt.get_format("GRAY16"), device=cuda)
     for args, kernel in (({"subspl": 2.0}, "dense_blur"), ({"subspl": 4096.0}, "subspl_blur")):
-        kbd.reset_launches()
+        trace.reset_launches()
         out = vt.bilateral_dither(c, radius=r, ref=c, **args).planes[0]
         torch.cuda.synchronize()
         assert out.is_cuda and {k: n for k, n in kbd.LAUNCHES.items() if n} == {kernel: 1}
@@ -1513,7 +1562,7 @@ def test_bilateral_dither_on_card_matches_cpu(cuda, fmt, args, launches, with_re
 
     c = clip(0)
     ref = clip(10) if with_ref else None
-    kbd.reset_launches()
+    trace.reset_launches()
     got = vt.bilateral_dither(c, ref=ref, **args)
     assert {k: n for k, n in kbd.LAUNCHES.items() if n} == launches
     want = vt.bilateral_dither(c.to("cpu"), ref=None if ref is None else ref.to("cpu"), **args)
@@ -1628,7 +1677,7 @@ def _bl_windows(clip, ref, specs, sigma_r):
 def _bl_hold(windows):
     """The kernel against its plain version on the card, bit for bit; one
     launch for all the windows."""
-    kbl.reset_launches()
+    trace.reset_launches()
     got = kbl.bilateral_window(windows)
     assert kbl.LAUNCHES["bilateral_window"] == 1
     want = kbl.bilateral_window_ref(windows)
@@ -1680,7 +1729,7 @@ def test_bilateral_window_on_both_sides_of_the_shared_memory_tile(cuda, with_ref
     """The largest radius whose tile and halo fit a block's shared memory
     takes the tile, the next one reads its taps from device memory; both
     equal the plain version (taps every r // 2 rows and columns from 1)."""
-    on_chip = kbl._lib().vz_bilateral_window_on_chip
+    on_chip = kbl._WINDOW_ON_CHIP
     lim = max(r for r in range(1, 400) if on_chip(r, int(with_ref)))
     assert lim == (104 if not with_ref else 69)
     for r in (lim, lim + 1):
@@ -1710,7 +1759,7 @@ def test_bilateral_never_takes_the_plain_window_on_the_card(cuda, monkeypatch, f
     monkeypatch.setattr(kbl, "bilateral_window_ref", boom)
     c = _seeded_clip(fmt, 2, 40, 64, 5, cuda)
     ref = _seeded_clip(fmt, 4, 40, 64, 6, cuda) if with_ref else None
-    kbl.reset_launches()
+    trace.reset_launches()
     out = vt.bilateral(c, ref=ref, **args)
     torch.cuda.synchronize()
     assert all(p.is_cuda for p in out.planes)
@@ -1747,7 +1796,7 @@ def test_bilateral_on_card_takes_planes_that_are_views(cuda, fmt, specs, sigma_r
     views = _bl_views(c, False)
     rviews = None if ref is None else _bl_views(ref, True)
     assert views.planes[0].is_cuda
-    kbl.reset_launches()
+    trace.reset_launches()
     got = vt.bilateral(views, ref=rviews, sigmaS=specs[0][2], sigmaR=sigma_r)
     assert kbl.LAUNCHES["bilateral_window"] == 1
     want = kbl.bilateral_window_ref(_bl_windows(c, ref, specs, sigma_r))
@@ -1790,7 +1839,7 @@ def test_bilateral_on_card_holds_its_contract_against_cpu(cuda, fmt, args, alg, 
     c = _seeded_clip(fmt, 2, 40, 64, 1, cuda)
     ref = _seeded_clip(fmt, 3, 40, 64, 2, cuda) if with_ref else None
     for m in (kb, kd, kc, ke, kx, ks, kz, kk, km, kbd, kbl):
-        m.reset_launches()
+        trace.reset_launches()
     got = vt.bilateral(c, ref=ref, **args)
     assert {k: n for m in (kb, kd, kc, ke, kx, ks, kz, kk, km, kbd, kbl)
             for k, n in m.LAUNCHES.items() if n} == ({"bilateral_window": 1} if alg == 2 else {})
@@ -1877,7 +1926,7 @@ def test_streamed_boxblur_equals_resident_on_card(cuda, batch):
     fmt, planes = _stream_frames("YUV420P16", 13, 96, 128, 0)
     resident = vt.boxblur(vt.Clip.from_planes(planes, fmt, device=cuda), hradius=13, vradius=13)
     sink, whole, chunks = _kept(fmt)
-    kb.reset_launches()
+    trace.reset_launches()
     vt.process_stream(vt.ArraySource(planes, fmt),
                       lambda c: vt.boxblur(c, hradius=13, vradius=13), batch=batch, sink=sink)
     assert kb.LAUNCHES["ct_blur_int"] == 3 * len(chunks)
@@ -2054,7 +2103,7 @@ def test_meshed_stream_equals_resident_on_card(cuda, batch):
     fmt, planes = _stream_frames("YUV420P8", 13, 64, 96, 11)
     resident = vt.checkmate(vt.Clip.from_planes(planes, fmt, device=cuda), tthr2=10)
     sink, whole, chunks = _kept(fmt)
-    kk.reset_launches()
+    trace.reset_launches()
     props = vt.process_stream(vt.ArraySource(planes, fmt),
                               lambda c: vt.plane_average(vt.checkmate(c, tthr2=10)),
                               batch=batch, overlap=2, sink=sink,

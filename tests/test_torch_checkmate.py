@@ -16,6 +16,7 @@ import vszip_tpu as vz
 import vszip_tpu_torch as vt
 from oracle.pointwise_ref import checkmate_ref as oracle
 from test_torch_core import assert_planes_match, both_clips, make_planes, same_error
+from vszip_tpu_torch import trace
 from vszip_tpu_torch.kernels import checkmate as kk
 
 CASES = [(fmt, tthr2, tmax) for fmt in ("GRAY8", "YUV420P8", "YUV444P8")
@@ -84,7 +85,7 @@ def test_plain_matches_pallas_interpret(monkeypatch):
 
 
 def test_wrapper_dispatch():
-    kk.reset_launches()
+    trace.reset_launches()
     x = torch.from_numpy(np.random.default_rng(1).integers(0, 256, (2, 7, 9), dtype=np.uint8))
     assert kk.checkmate(x, 12, 12, 0).shape == x.shape
     assert kk.LAUNCHES == {"checkmate": 0}

@@ -17,6 +17,7 @@ import vszip_tpu as vz
 import vszip_tpu_torch as vt
 from oracle.pointwise_ref import comb_mask_mt_ref, comb_mask_ref
 from test_torch_core import assert_planes_match, both_clips, make_planes, same_error
+from vszip_tpu_torch import trace
 from vszip_tpu_torch.kernels import comb_mask as km
 
 CASES = [(metric, mthresh, expand) for metric in (False, True) for mthresh in (0, 9)
@@ -120,7 +121,7 @@ def test_plain_matches_pallas_interpret(monkeypatch):
 
 
 def test_wrapper_dispatch():
-    km.reset_launches()
+    trace.reset_launches()
     x = torch.from_numpy(np.random.default_rng(1).integers(0, 256, (2, 7, 9), dtype=np.uint8))
     assert km.comb_mask(x, 6, 9, False, True).shape == x.shape
     assert km.LAUNCHES == {"comb_mask": 0}

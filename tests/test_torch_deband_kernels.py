@@ -28,7 +28,7 @@ from vszip_tpu.kernels import deband_m2_pallas as kp6
 from vszip_tpu.kernels import deband_pallas as kp5
 from vszip_tpu.runtime import deband_rng as jrng
 from vszip_tpu.runtime import dither as jdither
-from vszip_tpu_torch import _build
+from vszip_tpu_torch import _build, trace
 from vszip_tpu_torch.kernels import deband as kd
 from vszip_tpu_torch.runtime import deband_rng as trng
 from vszip_tpu_torch.runtime import dither as tdither
@@ -195,7 +195,7 @@ def test_wrappers_take_plain_version_on_cpu_without_counting():
     x = torch.from_numpy(rng.integers(0, 65536, (2, 20, 30), dtype=np.uint16))
     v = torch.from_numpy(np.minimum(rng.integers(0, 5, (20, 30)),
                                     _edge_cap(20, 30, 4)).astype(np.int32))
-    kd.reset_launches()
+    trace.reset_launches()
     for mode in kd.SEPARABLE_MODES:
         assert torch.equal(kd.deband_center(x, v, mode, True, 4, (900, 900, 900)),
                            kd.deband_center_ref(x, v, mode, True, 4, (900, 900, 900)))

@@ -27,6 +27,7 @@ import torch
 
 from oracle.eedi3_ref import interp_line_ref
 from test_torch_card import smooth_rows
+from vszip_tpu_torch import trace
 from vszip_tpu_torch.kernels import eedi3 as ke
 
 E = importlib.import_module("vszip_tpu.ops.eedi3")
@@ -203,7 +204,7 @@ def test_vcheck_matches_jax_scan(monkeypatch, hp, vcheck, use_scp, dh, field):
 
 def test_plain_versions_launch_nothing():
     rows = padded_rows(1, 2, 40, 0, False)
-    ke.reset_launches()
+    trace.reset_launches()
     ke.eedi3_fused(*rows, 40, 3, 1, *COEFS, OMAB)
     ke.eedi3_fused_hp(*rows, 40, 3, 1, *COEFS, OMAB)
     ke.vcheck(*map(torch.from_numpy, vcheck_inputs(False, 0)[:5]), 64, 4, False, 2, *RCP)

@@ -351,7 +351,7 @@ def test_failed_native_build_raises(monkeypatch, tmp_path):
     monkeypatch.setattr(_build, "BUILD_DIR", tmp_path / "build")
     monkeypatch.setenv("PATH", str(tmp_path))
     _build.load.cache_clear()
-    png_native._lib.cache_clear()
+    _build.bind("png_unfilter")
     try:
         data = encode_png(_rand_img((4, 4, 3)))
         with pytest.raises(RuntimeError, match="g\\+\\+ not found"):
@@ -362,7 +362,7 @@ def test_failed_native_build_raises(monkeypatch, tmp_path):
             vt.image_read(str(p), device="cpu")
     finally:
         _build.load.cache_clear()
-        png_native._lib.cache_clear()
+        _build.bind("png_unfilter")
     assert not os.path.exists(tmp_path / "build" / _build.library_path("png_unfilter").name)
 
 

@@ -14,6 +14,7 @@ import numpy as np
 import pytest
 import torch
 
+from vszip_tpu_torch import _build
 from vszip_tpu_torch.kernels import deband as kd
 from vszip_tpu_torch.ops.deband import _mode_center
 
@@ -107,4 +108,4 @@ def test_m2_takes_device_memory_taps_past_the_tiles(rmax, on_chip):
     rows, cols = kd.m2_tile_shape(rmax)
     assert cols % 8 == 0 and cols >= kd.M2_TILE_X + 2 * rmax
     assert kd.m2_on_chip(rmax) is on_chip
-    assert (rows * cols * 8 <= kd.MAX_SMEM_BYTES) is on_chip
+    assert (rows * cols * 8 <= _build.MAX_SMEM_BYTES) is on_chip

@@ -12,6 +12,7 @@ package, the per-op contract: integer planes bit-exact, EEDI3 max |d| <
 """
 
 import ast
+import types
 from pathlib import Path
 
 import jax
@@ -251,26 +252,62 @@ def test_run_sharded_errors(clip8):
                     mesh=frames_mesh(devices=["cpu"] * 2))
 
 
-def test_every_kernel_launch_enters_its_tensors_device():
-    """A mesh puts tensors on devices other than 0: every wrapper's kernel
-    launch (``_build.check`` of a ``vz_*`` entry point) runs inside ``with
-    torch.cuda.device(...)`` and on the stream ``_build.stream`` gives for
-    its tensor's device."""
+def test_every_kernel_launch_enters_its_tensors_device(monkeypatch):
+    """A mesh puts tensors on devices other than 0: every wrapper launches
+    through an entry point declared with ``_build.kernel``, whose call enters
+    the device it is given and passes that device's current stream, and each
+    launch site gives it its tensor's device."""
     launches = 0
     for path in sorted((ROOT / "vszip_tpu_torch" / "kernels").glob("*.py")):
         tree = ast.parse(path.read_text())
-        guarded = set()
+        kernels = {t.id for node in tree.body if isinstance(node, ast.Assign)
+                   and ast.unparse(node.value.func if isinstance(node.value, ast.Call)
+                                   else node.value) == "_build.kernel"
+                   for t in node.targets}
+        # a local that holds one of two of them (Deband's m2 variants)
+        kernels |= {t.id for node in ast.walk(tree) if isinstance(node, ast.Assign)
+                    and isinstance(node.value, ast.IfExp)
+                    and {ast.unparse(node.value.body), ast.unparse(node.value.orelse)} <= kernels
+                    for t in node.targets}
+        devices = {t.id for node in ast.walk(tree) if isinstance(node, ast.Assign)
+                   and ast.unparse(node.value).endswith(".device") for t in node.targets
+                   if isinstance(t, ast.Name)}
         for node in ast.walk(tree):
-            if isinstance(node, ast.With) and any(
-                    ast.unparse(item.context_expr).startswith("torch.cuda.device(")
-                    for item in node.items):
-                guarded.update(id(n) for n in ast.walk(node))
-        for node in ast.walk(tree):
-            if isinstance(node, ast.Call) and ast.unparse(node.func) == "_build.check":
-                launches += 1
-                assert id(node) in guarded, f"{path.name}:{node.lineno} launches outside its device"
-                assert "_build.stream(" in ast.unparse(node), f"{path.name}:{node.lineno}"
+            assert not (isinstance(node, ast.Attribute) and ast.unparse(node) in
+                        ("torch.cuda.device", "_build.load")), f"{path.name}:{node.lineno}"
+            if isinstance(node, ast.Call):
+                f = ast.unparse(node.func)
+                if f in kernels:
+                    launches += 1
+                    dev = ast.unparse(node.args[0])
+                    assert dev.endswith(".device") or dev in devices, f"{path.name}:{node.lineno}"
     assert launches >= 17  # every launch site of B1-B18 (some wrappers share one)
+
+    from vszip_tpu_torch import _build
+
+    entered, calls = [], []
+
+    class Device:
+        def __init__(self, d):
+            self.d = d
+
+        def __enter__(self):
+            entered.append(self.d)
+
+        def __exit__(self, *exc):
+            entered.append(None)
+
+    monkeypatch.setattr(torch.cuda, "device", Device)
+    monkeypatch.setattr(torch.cuda, "current_stream",
+                        lambda d: types.SimpleNamespace(cuda_stream=1000 + d.index))
+    k = _build.Kernel("boxblur", "vz_fake", (), None)
+    _build.ENTRIES.remove(k)
+    k.fn = lambda *a: calls.append((entered[-1], a)) or a[0]
+    k(torch.device("cuda", 1), 0, 5)
+    assert calls == [(torch.device("cuda", 1), (0, 5, 1001))] and entered[-1] is None
+    with pytest.raises(RuntimeError, match="vz_fake failed with CUDA error 2"):
+        k(torch.device("cuda", 0), 2)
+    assert calls[-1] == (torch.device("cuda", 0), (2, 1000)) and entered[-1] is None
 
 
 # ---------------------------------------------------------------------------

@@ -243,16 +243,22 @@ def test_counters_are_the_modules_launches():
     assert dict(view) == want and len(view) == len(want)
     with pytest.raises(TypeError):
         view["ct_blur_int"] = 1
-    saved = dict(boxblur.LAUNCHES)
+    registered = [d for m in KERNEL_MODULES for d in _registered(m)]
+    saved = [dict(d) for d in registered]
     try:
+        before = view["ct_blur_int"]
         with trace.collect() as t:
             boxblur.LAUNCHES["ct_blur_int"] += 3
-            assert view["ct_blur_int"] == saved["ct_blur_int"] + 3
+            assert view["ct_blur_int"] == before + 3
         assert t.launches == {"ct_blur_int": 3}
-        boxblur.reset_launches()
-        assert all(view[k] == 0 for k in (*boxblur.LAUNCHES, *boxblur.VARIANTS))
+        for d in registered:
+            d[next(iter(d))] += 1
+        trace.reset_launches()
+        assert set(view.values()) == {0}
+        assert all(v == 0 for d in registered for v in d.values())
     finally:
-        boxblur.LAUNCHES.update(saved)
+        for d, was in zip(registered, saved):
+            d.update(was)
     with pytest.raises(KeyError):
         view["no_such_kernel"]
 
@@ -287,9 +293,11 @@ def test_boxblur_variant_counters_are_in_the_view_and_the_cpu_path_never_counts_
     saved = dict(boxblur.VARIANTS)
     try:
         boxblur.VARIANTS["v_chip"] += 2
+        boxblur.VARIANTS["h_fixed_warp"] += 1
         assert view["v_chip"] == saved["v_chip"] + 2
-        boxblur.reset_launches()
+        trace.reset_launches()
         assert all(view[k] == 0 for k in boxblur.VARIANTS)
+        assert set(boxblur.VARIANTS.values()) == {0}
     finally:
         boxblur.VARIANTS.update(saved)
 

@@ -28,10 +28,6 @@ exports the query, and ptxas' registers of the package's build:
   the halo also the cluster barrier and those columns).  It also builds a copy with a
   cluster of one block (each frame's sweep on one block, the same ring and
   values ahead) and times it beside the package's build, outputs equal;
-- ``h_fixed`` (B2 and B1's horizontal stage, ``h_fixed_kernel``) on the
-  luma of 64 frames of 1080p uint16, r 13 with 1 and 5 passes and r 23
-  with 1: thread 0's cycles per row in staging the row, in the segment sums
-  and scan, and in the window sums and output (all passes);
 - ``subspl`` (B18, ``subspl_kernel``) at BilateralDither's defaults (r 16,
   k 30) on 64 frames of 1080p and 540x960 uint16: thread 0's cycles per
   block and frame group in the tile's fill, the taps and the divisions and
@@ -157,11 +153,11 @@ def _add(slot: int, value: str, who: str = "threadIdx.x == 0") -> str:
     return f"if ({who}) atomicAdd(&g_span[{slot}], (unsigned long long)({value}));"
 
 
-# kernel -> (library, the wrapper module, span names, ((anchor, code before,
+# kernel -> (library, span names, ((anchor, code before,
 # code after), ...), the C entry `vz_probe_occupancy(a, b, c, blocks,
 # threads)` or "")
 KERNELS = {
-    "eedi3_line": ("eedi3", ke, (
+    "eedi3_line": ("eedi3", (
         "roles (producers and DP)", "DP waits for costs", "producer 0 waits for a buffer",
         "producer 0 waits at chunk end", "backtrack", "interpolation"), (
         ("    if (c > 0) bar_sync_pair<kBarFull, Sh::threads>(buf);\n",
@@ -199,7 +195,7 @@ extern "C" int vz_probe_occupancy(int w, int mdis, int variant, int* blocks, int
   return (int)cudaOccupancyMaxActiveBlocksPerMultiprocessor(blocks, k, *threads, bytes);
 }
 """),
-    "vcheck": ("eedi3", ke, (
+    "vcheck": ("eedi3", (
         "copies in, block sync, next copies issued", "values ahead of cur",
         "neighbours' halo wait", "finish and store (far lines: the barrier and far columns)"), (
         ("  const size_t fb = (size_t)b * w;\n", "",
@@ -217,32 +213,7 @@ extern "C" int vz_probe_occupancy(int w, int mdis, int variant, int* blocks, int
         ("  // no block leaves while a neighbour may still address it\n",
          f"  {_add(0, 'sp_a')} {_add(1, 'sp_b')} {_add(2, 'sp_c')} {_add(3, 'sp_d')} "
          f"{_add(SLOTS - 1, 'n_off')}\n", "")), ""),
-    "h_fixed": ("boxblur", kb, (
-        "stage the row", "segment sums and scan", "window sums and output"), (
-        ("  V pre;\n", "", "  long long hs_fill = 0, hs_scan = 0, hs_out = 0, hs_n = 0;\n"),
-        ("    __syncthreads();  // the previous row's last reads of A are done\n",
-         "    long long hs0 = clock64();\n", ""),
-        ("    const long long next = row + gridDim.x;\n",
-         "    hs_fill += clock64() - hs0;\n    ++hs_n;\n", ""),
-        ("      uint32_t carry = 0;\n", "      long long hp0 = clock64();\n", ""),
-        ("      auto prefix = [&](int q) {\n",
-         "      long long hp1 = clock64();\n      hs_scan += hp1 - hp0;\n", ""),
-        ("      uint32_t* t = cur;\n      cur = nxt;\n", "      hs_out += clock64() - hp1;\n", ""),
-        ("}\n\n// One thread per column: the comptime path's raw vertical",
-         f"  {_add(0, 'hs_fill')} {_add(1, 'hs_scan')} {_add(2, 'hs_out')} "
-         f"{_add(SLOTS - 1, 'hs_n')}\n", "")), """
-extern "C" int vz_probe_occupancy(int w, int r, int passes, int* blocks, int* threads) {
-  const HShape hs = h_shape(w, r);
-  const size_t bytes = hs.block_words() * sizeof(uint32_t);
-  cudaError_t e = cudaFuncSetAttribute(h_fixed_kernel<uint16_t, false>,
-                                       cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
-  if (e != cudaSuccess) return (int)e;
-  *threads = hs.threads;
-  return (int)cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-      blocks, h_fixed_kernel<uint16_t, false>, hs.threads, bytes);
-}
-"""),
-    "v_fixed": ("boxblur", kb, (
+    "v_fixed": ("boxblur", (
         "issue a copy group", "wait for a group and the warp", "groups of 4 steps where no "
         "pass mirrors", "groups at the edges (top, bottom)"), (
         ("  int c0 = 0, t0 = R0 - R, cr = 0;  // s mod R0, (s - R) mod R0, s mod R\n", "",
@@ -272,7 +243,7 @@ extern "C" int vz_probe_occupancy(int r, int passes, int unused, int* blocks, in
                                                             v_chip_bytes(r, passes));
 }
 """),
-    "ct_v_quant": ("boxblur", kb, (
+    "ct_v_quant": ("boxblur", (
         "issue a copy group", "wait for a group and the warp", "groups of 4 steps that slide "
         "with no mirror", "groups at the edges (W(0), top, bottom)"), (
         ("  int c0 = 0, t0 = R0 - R;  // s mod R0, (s - R) mod R0\n", "",
@@ -300,7 +271,7 @@ extern "C" int vz_probe_occupancy(int r, int unused, int unused2, int* blocks, i
   return (int)cudaOccupancyMaxActiveBlocksPerMultiprocessor(blocks, k, 32, v_chip_bytes(r, 1));
 }
 """),
-    "comb_mask": ("comb_mask", km, (
+    "comb_mask": ("comb_mask", (
         "load the band's rows and halo and wait", "the band's rows: comb, motion, expand, store",
         "the warp's life, per frame"), (
         ("  if (xo >= w) return;  // the whole warp\n", "",
@@ -327,7 +298,7 @@ extern "C" int vz_probe_occupancy(int metric_1, int motion, int aligned, int* bl
   return (int)cudaOccupancyMaxActiveBlocksPerMultiprocessor(blocks, k, 32 * kWarps, 0);
 }
 """),
-    "m2": ("deband", kd, (
+    "m2": ("deband", (
         "decode an item's keys", "taps, centres and stores", "wait for the next pair's copies",
         "block barriers (2)", "interleave the next pair into the pair tile",
         "issue the copies of the pair after"), (
@@ -358,7 +329,7 @@ extern "C" int vz_probe_occupancy(int rmax, int unused, int unused2, int* blocks
                                                             M2Tile(rmax).bytes());
 }
 """),
-    "subspl": ("bilateral_dither", kbd, (
+    "subspl": ("bilateral_dither", (
         "fill and its barriers", "taps", "division and store"), (
         ("  const int rows = min(b.rows, p.h - y0);\n", "",
          "  long long sb_fill = 0, sb_taps = 0, sb_out = 0, sb_n = 0;\n"),
@@ -375,7 +346,7 @@ extern "C" int vz_probe_occupancy(int rmax, int unused, int unused2, int* blocks
         ("}\n\nsize_t tile_bytes(",
          f"  {_add(0, 'sb_fill')} {_add(1, 'sb_taps')} {_add(2, 'sb_out')} "
          f"{_add(SLOTS - 1, 'sb_n')}\n", "")), ""),
-    "checkmate": ("checkmate", kk, (
+    "checkmate": ("checkmate", (
         "barrier before the frame", "next copies issued, 16 pixels computed",
         "copies waited for, barrier, widening", "the block's life, from its start",
         "from its start to its first frame"), (
@@ -405,7 +376,8 @@ extern "C" int vz_probe_occupancy(int tthr2, int aligned, int unused, int* block
   return (int)cudaOccupancyMaxActiveBlocksPerMultiprocessor(blocks, k, kThreads,
                                                             smem_bytes(tthr2));
 }
-"""),    "ssim": ("ssim", kss, (
+"""),
+    "ssim": ("ssim", (
         "vertical pass (the window's taps)", "horizontal pass and maps (two warp barriers)",
         "window shift and the next row's loads", "rows within 4 of the top or bottom",
         "block barrier", "in-order sums of the band", "the warp's life"), (
@@ -447,7 +419,7 @@ extern "C" int vz_probe_occupancy(int ssim, int err, int cols, int* blocks, int*
   return cols == 2 ? probe_occupancy<2>(ssim, err, blocks) : probe_occupancy<1>(ssim, err, blocks);
 }
 """),
-    "clahe8": ("clahe", kc, (
+    "clahe8": ("clahe", (
         "table staging and its barriers", "the chunk's column table",
         "wait for the row's chunk (loaded a row ahead)", "16 pixels: lookups, blend, pack",
         "the block's life"), (
@@ -483,7 +455,7 @@ extern "C" int vz_probe_occupancy(int nthreads, int smem, int vec, int* blocks, 
                                                             smem ? 16 * 1024 : 0);
 }
 """),
-    "luma_stats": ("xpsnr", kx, (
+    "luma_stats": ("xpsnr", (
         "prologue: the first rows' loads", "wait for this step's loads, unpack and shuffle",
         "shift the loads in flight, issue the next", "sse, Laplacian, temporal term",
         "block reduction and store", "the warp's life"), (
@@ -520,7 +492,7 @@ extern "C" int vz_probe_occupancy(int pair, int u16, int order, int* blocks, int
   return (int)cudaOccupancyMaxActiveBlocksPerMultiprocessor(blocks, k, *threads, 0);
 }
 """),
-    "chroma_sse": ("xpsnr", kx, (
+    "chroma_sse": ("xpsnr", (
         "issue a group's loads", "wait for them and sum the group's rows",
         "segmented reduction and store", "the warp's life"), (
         ("  const bool lead = ln % group == 0 && bxi < nbw;"
@@ -548,7 +520,7 @@ extern "C" int vz_probe_occupancy(int a, int b, int c, int* blocks, int* threads
       blocks, chroma_strip_kernel<uint16_t, true>, *threads, 0);
 }
 """),
-    "compress": ("compress", kz, (
+    "compress": ("compress", (
         "issue the next frame's 8 loads", "the block's pipeline (unpack, 4 passes, pack)",
         "store", "the thread's life, per frame"), (
         ("  uint64_t rw[8];\n  load_block<kVec>(rw, x + f * plane, h, w, y0, x0);\n",
@@ -588,7 +560,7 @@ extern "C" int vz_probe_read(unsigned long long* out) {{
 def instrument(kernel: str, src: str) -> str:
     """`src` with `kernel`'s spans, the counters and the probe's entry
     points; exits if an anchor is not found exactly once."""
-    _, _, _, spans, occupancy = KERNELS[kernel]
+    _, _, spans, occupancy = KERNELS[kernel]
     for anchor, before, after in spans:
         if src.count(anchor) != 1:
             raise SystemExit(f"kernel_spans: {kernel}: anchor not found once: {anchor!r}")
@@ -598,19 +570,16 @@ def instrument(kernel: str, src: str) -> str:
     return src + PROBE_READ + occupancy
 
 
-def build(lib: str, text: str, name: str, plain: ctypes.CDLL) -> ctypes.CDLL:
-    """`text` built as library `lib` would be, bound as the package's build
-    `plain` is."""
+def build(lib: str, text: str, name: str) -> ctypes.CDLL:
+    """`text` built as library `lib` would be (its headers from the package's
+    ``csrc/``); ``using`` binds the package's entry points to it."""
     src, so = OUT / f"{name}.cu", OUT / f"{name}.so"
     src.write_text(text)
-    log = subprocess.run([_build._nvcc(), *_build._flags(lib), "-o", str(so), str(src)],
-                         capture_output=True, text=True)
+    log = subprocess.run([_build._nvcc(), *_build._flags(lib), "-I", str(_build.source(lib).parent),
+                          "-o", str(so), str(src)], capture_output=True, text=True)
     if log.returncode != 0:
         raise SystemExit(f"kernel_spans: build of {name} failed:\n{log.stdout}{log.stderr}")
     out = ctypes.CDLL(str(so))
-    for fn in re.findall(r"^\w[\w\s\*]*\b(vz_\w+)\(", _build.source(lib).read_text(), re.M):
-        getattr(out, fn).argtypes = getattr(plain, fn).argtypes
-        getattr(out, fn).restype = getattr(plain, fn).restype
     if hasattr(out, "vz_probe_read"):
         out.vz_probe_read.argtypes = [ctypes.c_void_p]
     return out
@@ -631,14 +600,13 @@ def registers(lib: str, kernel: str) -> str:
     return "; ".join(out)
 
 
-def using(module, lib: ctypes.CDLL, call):
-    """`call()` with `module`'s wrappers bound to `lib`."""
-    saved = module._lib
-    module._lib = lambda: lib
+def using(lib: str, copy: ctypes.CDLL, call):
+    """`call()` with library `lib`'s entry points bound to `copy`."""
+    _build.bind(lib, copy)
     try:
         return call()
     finally:
-        module._lib = saved
+        _build.bind(lib)
 
 
 def events_ms(call, iters: int = 5) -> float:
@@ -697,12 +665,12 @@ def _same(a, b) -> bool:
 def measure(kernel: str, probe: ctypes.CDLL, label: str, call, occ=None, timer=events_ms) -> None:
     """Time `call` on the package's build (`timer`: events by default), run it
     once on `probe`, hold the outputs equal and print the spans."""
-    module, names = KERNELS[kernel][1], KERNELS[kernel][2]
+    lib, names = KERNELS[kernel][:2]
     ms = timer(call)
     want = call()
     buf = (ctypes.c_ulonglong * SLOTS)()
     probe.vz_probe_read(buf)
-    got = using(module, probe, call)
+    got = using(lib, probe, call)
     torch.cuda.synchronize()
     probe.vz_probe_read(buf)
     if not _same(got, want):
@@ -736,7 +704,7 @@ def vcheck(probe, g, dev) -> None:
     one = src.replace("constexpr int kVcheckCluster = 8;", "constexpr int kVcheckCluster = 1;")
     if one == src:
         raise SystemExit("kernel_spans: kVcheckCluster not found")
-    single = build("eedi3", one, "vcheck_single", ke._lib())
+    single = build("eedi3", one, "vcheck_single")
     for hp in (False, True):
         dr = 2 * MDIS if hp else MDIS
         vin = (torch.rand((LINES, FRAMES, W), generator=g, device=dev),
@@ -749,18 +717,10 @@ def vcheck(probe, g, dev) -> None:
         def call():
             return ke.vcheck(*vin, W, MDIS, hp, 2, *RCP)
         measure("vcheck", probe, f"B10 <{int(hp)}> (per line of thread 0)", call)
-        if not torch.equal(using(ke, single, call), call()):
+        if not torch.equal(using("eedi3", single, call), call()):
             raise SystemExit("kernel_spans: B10 on one block per frame disagrees")
         print(f"B10 <{int(hp)}> on one block per frame (the same ring and values ahead, no "
-              f"halo): {events_ms(lambda: using(ke, single, call)):.3f} ms", flush=True)
-
-
-def h_fixed(probe, g, dev) -> None:
-    x = torch.randint(0, 1 << 16, (64, 1080, 1920), generator=g, device=dev,
-                      dtype=torch.int32).to(torch.uint16)
-    for r, passes in ((13, 1), (13, 5), (23, 1)):
-        measure("h_fixed", probe, f"h_fixed r {r}, {passes} pass(es), 64x1080x1920 u16 "
-                "(per row)", lambda: kb.rt_blur_h(x, r, passes), (1920, r, passes))
+              f"halo): {events_ms(lambda: using("eedi3", single, call)):.3f} ms", flush=True)
 
 
 def _bd_consts():
@@ -859,7 +819,7 @@ def m2(probe, g, dev) -> None:
     if src.count(taps) != 1:
         raise SystemExit("kernel_spans: m2_tile's tap offsets not found")
     centre = build("deband", src.replace(taps, "          const int o1 = 0, o2 = 0;\n"),
-                   "m2_centre", kd._lib())
+                   "m2_centre")
     for x, key, bf, rmax, thr in m2_calls(g, dev):
         n, h, w = x.shape
 
@@ -868,7 +828,7 @@ def m2(probe, g, dev) -> None:
         measure("m2", probe, f"B6 m2_tile deband() plane {n}x{h}x{w}, rmax {rmax}, blur_first "
                 f"{bf} (lane 0 of each warp, per pair of frames)", call, (rmax, 0, 0))
         print(f"B6 with every tap at the centre (no bank conflicts): "
-              f"{events_ms(lambda: using(kd, centre, call)):.3f} ms", flush=True)
+              f"{events_ms(lambda: using("deband", centre, call)):.3f} ms", flush=True)
 
 
 def comb_mask(probe, g, dev) -> None:
@@ -1088,7 +1048,7 @@ def compress(probe, g, dev) -> None:
                     lambda: kz.compress_plane(*a), (int(codec == "jpeg"), int(wide), 0))
 
 
-RUNS = {"eedi3_line": eedi3_line, "vcheck": vcheck, "h_fixed": h_fixed, "subspl": subspl,
+RUNS = {"eedi3_line": eedi3_line, "vcheck": vcheck, "subspl": subspl,
         "checkmate": checkmate, "v_fixed": v_fixed, "ct_v_quant": ct_v_quant, "m2": m2,
         "comb_mask": comb_mask, "ssim": ssim, "compress": compress, "clahe8": clahe8,
         "luma_stats": luma_stats, "chroma_sse": chroma_sse}
@@ -1186,9 +1146,9 @@ def main() -> int:
     g = torch.Generator(device=dev).manual_seed(0)
     _build.build(*{KERNELS[k][0] for k in chosen})
     for kernel in chosen:
-        lib, module = KERNELS[kernel][:2]
+        lib = KERNELS[kernel][0]
         probe = build(lib, instrument(kernel, _build.source(lib).read_text()),
-                      f"{kernel}_probe", module._lib())
+                      f"{kernel}_probe")
         print(f"{kernel} registers:", registers(lib, FUNCTION.get(kernel, f"{kernel}_kernel")),
               flush=True)
         if kernel in SASS_OF:

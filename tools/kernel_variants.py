@@ -158,12 +158,11 @@ def main() -> int:
         if src.count(old) != 1:
             raise SystemExit(f"kernel_variants: {lib}: not found once: {old!r}")
         if (lib, new) not in built:
-            built[lib, new] = ks.build(lib, src.replace(old, new), f"variant_{len(built)}",
-                                      module._lib())
+            built[lib, new] = ks.build(lib, src.replace(old, new), f"variant_{len(built)}")
 
-        def on_copy(module=module, call=call, copy=built[lib, new],
+        def on_copy(module=module, lib=lib, call=call, copy=built[lib, new],
                     attrs=attrs[0] if attrs else {}):
-            return with_attrs(module, attrs, lambda: ks.using(module, copy, call))
+            return with_attrs(module, attrs, lambda: ks.using(lib, copy, call))
 
         if not ks._same(tuple(on_copy()), tuple(call())):
             raise SystemExit(f"kernel_variants: {new!r} disagrees with the package")

@@ -23,12 +23,19 @@ library               source                               compiler
 ====================  ===================================  =====================
 
 Libraries go to ``build/vszip_tpu_torch/<name>_<hash>.so`` at the root of
-the checkout, keyed by a hash of the source and the flags, never beside the
+the checkout, keyed by a hash of the flags, the source and every header it
+includes by a quoted ``#include`` (``csrc/common.cuh``), never beside the
 source.  Nothing builds at import: a library is compiled at its first use,
 or ahead of time by ``build(*names)``, which starts one compiler per source,
 all at once.  A failed build raises; there is no prebuilt fallback.  The
 compiler's output (for nvcc, ptxas' registers per kernel) is kept beside the
 library as ``.log``.
+
+Python reaches a library only through entry points declared once with
+``entry`` (a plain call: the host libraries and the CUDA libraries' queries)
+or ``kernel`` (a launch: it enters the device, passes its current stream and
+raises on a CUDA error).  Each resolves its symbol at its first call and
+keeps it; ``bind`` points a library's entry points at another build of it.
 """
 
 from __future__ import annotations
@@ -36,10 +43,13 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import re
 import subprocess
 import time
 from functools import lru_cache
 from pathlib import Path
+
+import torch
 
 PACKAGE = Path(__file__).resolve().parent
 BUILD_DIR = PACKAGE.parent / "build" / "vszip_tpu_torch"
@@ -47,6 +57,10 @@ BUILD_DIR = PACKAGE.parent / "build" / "vszip_tpu_torch"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 GXX_FLAGS = ("-O2", "-fPIC", "-shared")
+
+# A block's dynamic shared memory at most on sm_90 (227 KB): csrc/common.cuh
+# kMaxSmemBytes, which the wrappers' size rules read here.
+MAX_SMEM_BYTES = 232448
 
 # name -> (source relative to the package, extra flags).  deband.cu's mode 6
 # (the VCL pow polynomial), CLAHE's blend, EEDI3's cost, DP and
@@ -97,10 +111,23 @@ def source(name: str) -> Path:
     return PACKAGE / LIBRARIES[name][0]
 
 
+def _sources(path: Path) -> list[Path]:
+    """`path` and every file it includes by a quoted ``#include``, resolved
+    beside the file that includes it, each once, in the order first met."""
+    seen = [path]
+    for p in seen:
+        for inc in re.findall(r'^\s*#\s*include\s+"([^"]+)"', p.read_text(), re.M):
+            q = (p.parent / inc).resolve()
+            if q not in seen:
+                seen.append(q)
+    return seen
+
+
 def library_path(name: str) -> Path:
-    """Where library `name` for the current source and flags lives."""
+    """Where library `name` for the current flags, source and headers lives."""
     h = hashlib.sha256(" ".join(_flags(name)).encode())
-    h.update(source(name).read_bytes())
+    for path in _sources(source(name)):
+        h.update(path.read_bytes())
     return BUILD_DIR / f"{name}_{h.hexdigest()[:16]}.so"
 
 
@@ -156,15 +183,73 @@ def load(name: str) -> ctypes.CDLL:
     return ctypes.CDLL(str(build(name)[name]))
 
 
-def stream(x) -> int:
-    """The handle of the current CUDA stream on `x`'s device."""
-    import torch
-
-    return torch.cuda.current_stream(x.device).cuda_stream
+# every declared entry point, in declaration order
+ENTRIES: list[Entry] = []
 
 
-def check(fn, *args) -> None:
-    """Call a kernel entry point; raise if it returns a CUDA error code."""
-    err = fn(*args)
-    if err != 0:
-        raise RuntimeError(f"vszip_tpu_torch: {fn.__name__} failed with CUDA error {err}")
+class Entry:
+    """Entry point `symbol` of library `library`, declared once with its C
+    argument types and return type.  Calling it calls the symbol with the
+    arguments as given and returns its result; the symbol is resolved at the
+    first call (building the library if need be) and kept."""
+
+    __slots__ = ("library", "symbol", "argtypes", "restype", "fn")
+
+    def __init__(self, library: str, symbol: str, argtypes: tuple, restype) -> None:
+        self.library, self.symbol = library, symbol
+        self.argtypes, self.restype = argtypes, restype
+        self.fn = None
+        ENTRIES.append(self)
+
+    def bind(self, lib: ctypes.CDLL | None) -> None:
+        """Resolve the symbol in `lib`; None: in the package's build at the
+        next call."""
+        if lib is None:
+            self.fn = None
+            return
+        fn = getattr(lib, self.symbol)
+        fn.argtypes, fn.restype = self.argtypes, self.restype
+        self.fn = fn
+
+    def __call__(self, *args):
+        if self.fn is None:
+            self.bind(load(self.library))
+        return self.fn(*args)
+
+
+class Kernel(Entry):
+    """An entry point that launches CUDA work and returns its CUDA error code,
+    its last C argument the stream.  ``k(device, *args)`` enters `device`,
+    calls the symbol with `args` and that device's current stream, and raises
+    ``RuntimeError`` naming the symbol on a non-zero code."""
+
+    __slots__ = ()
+
+    def __call__(self, device, *args) -> None:
+        if self.fn is None:
+            self.bind(load(self.library))
+        with torch.cuda.device(device):
+            err = self.fn(*args, torch.cuda.current_stream(device).cuda_stream)
+        if err != 0:
+            raise RuntimeError(f"vszip_tpu_torch: {self.symbol} failed with CUDA error {err}")
+
+
+def entry(library: str, symbol: str, *argtypes, restype=ctypes.c_int) -> Entry:
+    """Declare a plain call of `symbol` in `library` (C argument types
+    `argtypes`, return type `restype`; None for void)."""
+    return Entry(library, symbol, argtypes, restype)
+
+
+def kernel(library: str, symbol: str, *argtypes) -> Kernel:
+    """Declare a launch of `symbol` in CUDA library `library`: `argtypes`
+    are its C argument types before the stream, which the call appends."""
+    return Kernel(library, symbol, (*argtypes, ctypes.c_void_p), ctypes.c_int)
+
+
+def bind(library: str, lib: ctypes.CDLL | None = None) -> None:
+    """Resolve every declared entry point of `library` in `lib`, a build of a
+    copy of its source (tools run the package's wrappers on such copies);
+    None: in the package's own build again, at each one's next call."""
+    for e in ENTRIES:
+        if e.library == library:
+            e.bind(lib)

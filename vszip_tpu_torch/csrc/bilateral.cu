@@ -59,13 +59,14 @@
 
 #include <type_traits>
 
+#include "common.cuh"
+
 namespace {
 
 constexpr int kMaxPlanes = 3;
 constexpr int kTileW = 32, kThreadRows = 4, kRows = 8;  // outputs per thread, one column
 constexpr int kTileH = kThreadRows * kRows;
 constexpr int kThreads = kTileW * kThreadRows;
-constexpr size_t kMaxSmemBytes = 232448;
 constexpr size_t kDefaultSmemBytes = 48 * 1024;
 
 struct Plane {

@@ -70,12 +70,13 @@
 
 #include <type_traits>
 
+#include "common.cuh"
+
 namespace {
 
 constexpr int kTileW = 32, kTileH = 16;  // one thread per output pixel
 constexpr int kLists = 23;
 constexpr int kMaxGridZ = 65535;
-constexpr size_t kMaxSmemBytes = 232448;
 constexpr size_t kDefaultSmemBytes = 48 * 1024;
 
 struct Params {

@@ -54,21 +54,19 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
-#include <mutex>
 #include <type_traits>
-#include <vector>
+
+#include "common.cuh"
 
 namespace {
 
 constexpr int kChunk = 8;        // rows loaded ahead per step of a column walk
 constexpr int kColThreads = 128; // threads per block of a column kernel
 constexpr int kMaxGridY = 65535;
-// h_fixed: samples per segment, the most threads per block, the most
-// dynamic shared memory a Hopper block may take, and the grid of the
-// global-scratch variant (2 blocks per SM)
+// h_fixed: samples per segment, the most threads per block, and the grid of
+// the global-scratch variant (2 blocks per SM)
 constexpr int kSeg = 8;
 constexpr int kMaxRowThreads = 1024;
-constexpr size_t kMaxSmemBytes = 232448;
 constexpr long long kScratchBlocks = 264;
 // v_chip: the most passes it unrolls, the rows of one copy group (32 lanes
 // x 16 bytes = 4 rows of a warp's 128-byte strip), and the groups in flight
@@ -85,8 +83,9 @@ constexpr int kStripBytes = 128;
 // {slots, chunks, blocks} holds n = 2r + 1 <= slots samples in each of up
 // to `chunks` chunks a lane, with at least `blocks` blocks an SM (which caps
 // ptxas' registers; the 4-slot run spills at its default of 128); the first
-// run whose slots take n is used (kernels/boxblur.py H_WARP_RUNS holds the
-// same slots and chunks).
+// run whose slots take n is used.  kernels/boxblur.py H_WARP_RUNS holds the
+// same slots and chunks, and its h_fixed_warp_shape chooses the shape that
+// vz_h_fixed_warp is given.
 constexpr int kRowWarps = 4;
 constexpr int kWarpRuns[][3] = {{4, 22, 1}, {8, 13, 3}, {16, 8, 2}, {24, 4, 3},
                                 {28, 3, 3}, {32, 3, 2}, {48, 2, 2}};
@@ -181,11 +180,6 @@ __global__ void v_fixed_kernel(const T* in, T* out, T* scratch, int n, int h,
       src = dst;
     }
   }
-}
-
-__device__ __forceinline__ void cp_async16(void* dst, const void* src) {
-  const unsigned d = (unsigned)__cvta_generic_to_shared(dst);
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(d), "l"(src));
 }
 
 __device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n" ::); }
@@ -490,7 +484,7 @@ __device__ __forceinline__ uint32_t fixed_out_u(long long k0, uint32_t inv2, uin
   return (T)(int)((k0 + (long long)((unsigned long long)inv2 * wx)) >> 16);
 }
 
-// h_fixed's block design, for the rows h_warp_shape leaves (longer rows,
+// h_fixed's block design, for the rows the register design leaves (longer rows,
 // r > 23, the comptime quirk r > w): one block per row at a time, a
 // persistent grid striding over the rows.  The mirror-padded row sits in
 // shared memory (HShape's layout), written once from device memory: its
@@ -669,7 +663,7 @@ __global__ void __launch_bounds__(kMaxRowThreads)
   }
 }
 
-// h_fixed's register design for a row (launch_h_fixed's h_warp_shape):
+// h_fixed's register design for a row (the wrapper's h_fixed_warp_shape):
 // `chunks` runs of n = 2r + 1 samples a lane; cell s of the warp (lane l,
 // chunk c, slot i < n: s = (l * chunks + c) * n + i) holds sample s - a of
 // the mirrored row before the first pass; lane l0's first run starts at
@@ -997,67 +991,19 @@ long long h_fixed_scratch_words(long long rows, int w, int r) {
   return (rows < kScratchBlocks ? rows : kScratchBlocks) * (long long)words;
 }
 
-// The blocks of `kernel` (`threads` threads, `bytes` of dynamic shared
-// memory) that stay resident on the current device, at least one per SM;
-// queried once per (device, kernel, threads, bytes).  The kernel is allowed
-// the most dynamic shared memory any of its queries asked for, so every
-// shape queried before stays launchable.
-cudaError_t resident_blocks(const void* kernel, int threads, size_t bytes, long long* blocks) {
-  struct Seen {
-    int dev;
-    const void* kernel;
-    int threads;
-    size_t bytes;
-    long long blocks;
-  };
-  static std::mutex mu;
-  static std::vector<Seen> seen;
-  int dev;
-  cudaError_t e = cudaGetDevice(&dev);
-  if (e != cudaSuccess) return e;
-  std::lock_guard<std::mutex> lock(mu);
-  size_t allow = bytes;
-  for (const Seen& s : seen) {
-    if (s.dev != dev || s.kernel != kernel) continue;
-    if (s.threads == threads && s.bytes == bytes) {
-      *blocks = s.blocks;
-      return cudaSuccess;
-    }
-    if (s.bytes > allow) allow = s.bytes;
-  }
-  int sms, per_sm;
-  e = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)allow);
-  if (e == cudaSuccess) e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-  if (e == cudaSuccess) {
-    e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, threads, bytes);
-  }
-  if (e != cudaSuccess) return e;
-  *blocks = (long long)sms * (per_sm > 0 ? per_sm : 1);
-  seen.push_back({dev, kernel, threads, bytes, *blocks});
-  return cudaSuccess;
-}
-
-// h_fixed's register design for rows of w samples at radius r and `passes`
-// (r <= w, no periodic quirk): the first run of kWarpRuns whose slots take
-// n = 2r + 1, with the fewest chunks whose 32 lanes hold the row and its
-// margins (a >= passes * r before it, passes * r after); false where none
-// does, and the block design takes the rows (kernels/boxblur.py
-// h_fixed_warp_shape holds the same rule).
-bool h_warp_shape(int w, int r, int passes, int* slots, HWarp* hw) {
-  if (r < 1 || r > w || passes < 1) return false;
-  const long long n = 2LL * r + 1;
+// Whether the register design's shape holds rows of hw.w samples at hw.r and
+// hw.passes, so that no lane writes past its row buffer: `slots` the first
+// run of kWarpRuns whose slots take n = 2r + 1 (the run's slots below
+// warp_run_live always hold a sample), at most its chunks a lane, lane l0's
+// first run starting at sample -r (a = l0 * chunks * n + r), a >= passes * r
+// samples before the row and passes * r after it in the warp's cells.
+bool h_warp_holds(int slots, const HWarp& hw) {
+  if (hw.r < 1 || hw.r > hw.w || hw.passes < 1 || hw.chunks < 1 || hw.l0 < 0) return false;
+  const long long n = 2LL * hw.r + 1, c = hw.chunks, pr = (long long)hw.passes * hw.r;
   for (const auto& run : kWarpRuns) {
     if (n > run[0]) continue;
-    for (long long c = 1; c <= run[1]; ++c) {
-      const long long l0 = ((long long)(passes - 1) * r + c * n - 1) / (c * n);
-      const long long a = l0 * c * n + r;
-      if (a + w + (long long)passes * r <= 32 * c * n) {
-        *slots = run[0];
-        *hw = {w, r, (int)c, (int)l0, (int)a, passes};
-        return true;
-      }
-    }
-    return false;
+    return run[0] == slots && c <= run[1] && hw.a == hw.l0 * c * n + hw.r && hw.a >= pr &&
+           (long long)hw.a + hw.w + pr <= 32 * c * n;
   }
   return false;
 }
@@ -1083,25 +1029,31 @@ int launch_h_warp(const void* in, void* out, long long rows, const HWarp& hw, lo
   return (int)cudaGetLastError();
 }
 
+// The register design with the run of kWarpRuns whose slots are `slots`.
+template <typename T>
+int launch_h_fixed_warp(const void* in, void* out, long long rows, int slots, const HWarp& hw,
+                        cudaStream_t s) {
+  if (!h_warp_holds(slots, hw)) return (int)cudaErrorInvalidValue;
+  long long inv, inv2;
+  fixed_constants(hw.r, &inv, &inv2);
+  static_assert(sizeof(kWarpRuns) / sizeof(kWarpRuns[0]) == 7, "one case a run");
+#define VZ_RUN(k)                                                                 \
+  case kWarpRuns[k][0]:                                                           \
+    return launch_h_warp<T, kWarpRuns[k][0], kWarpRuns[k][1]>(in, out, rows, hw, inv, \
+                                                              (uint32_t)inv2, s);
+  switch (slots) {
+    VZ_RUN(0) VZ_RUN(1) VZ_RUN(2) VZ_RUN(3) VZ_RUN(4) VZ_RUN(5) VZ_RUN(6)
+    default: return (int)cudaErrorInvalidValue;
+  }
+#undef VZ_RUN
+}
+
+// The block design.
 template <typename T>
 int launch_h_fixed(const void* in, void* out, void* scratch, long long rows, int w, int r,
                    int passes, cudaStream_t s) {
   long long inv, inv2;
   fixed_constants(r, &inv, &inv2);
-  int slots;
-  HWarp hw;
-  if (h_warp_shape(w, r, passes, &slots, &hw)) {
-    static_assert(sizeof(kWarpRuns) / sizeof(kWarpRuns[0]) == 7, "one case a run");
-#define VZ_RUN(k)                                                                 \
-  case kWarpRuns[k][0]:                                                           \
-    return launch_h_warp<T, kWarpRuns[k][0], kWarpRuns[k][1]>(in, out, rows, hw, inv, \
-                                                              (uint32_t)inv2, s);
-    switch (slots) {
-      VZ_RUN(0) VZ_RUN(1) VZ_RUN(2) VZ_RUN(3) VZ_RUN(4) VZ_RUN(5) VZ_RUN(6)
-      default: return (int)cudaErrorInvalidValue;
-    }
-#undef VZ_RUN
-  }
   const HShape hs = h_shape(w, r);
   // vector loads and stores: 8 samples per chunk, rows on 16-byte (uint8:
   // 8-byte) boundaries
@@ -1225,20 +1177,25 @@ long long vz_h_fixed_scratch_words(long long rows, int w, int r) {
   return h_fixed_scratch_words(rows, w, r);
 }
 
-// 1 where vz_h_fixed runs rows of w at radius r and `passes` one warp a row
-// in registers, 0 where it runs the block design.
-int vz_h_fixed_in_registers(int w, int r, int passes) {
-  int slots;
-  HWarp hw;
-  return h_warp_shape(w, r, passes, &slots, &hw) ? 1 : 0;
-}
-
+// h_fixed's block design, any row (scratch as vz_h_fixed_scratch_words says).
 int vz_h_fixed(const void* in, void* out, void* scratch, int elem_bytes, long long rows,
                int w, int r, int passes, void* stream) {
   cudaStream_t s = (cudaStream_t)stream;
   return elem_bytes == 1
              ? launch_h_fixed<uint8_t>(in, out, scratch, rows, w, r, passes, s)
              : launch_h_fixed<uint16_t>(in, out, scratch, rows, w, r, passes, s);
+}
+
+// h_fixed's register design on the shape the wrapper chose
+// (kernels/boxblur.py h_fixed_warp_shape: slots, chunks, l0, a);
+// cudaErrorInvalidValue where that shape does not hold the rows
+// (h_warp_holds).
+int vz_h_fixed_warp(const void* in, void* out, int elem_bytes, long long rows, int w, int r,
+                    int passes, int slots, int chunks, int l0, int a, void* stream) {
+  cudaStream_t s = (cudaStream_t)stream;
+  const HWarp hw = {w, r, chunks, l0, a, passes};
+  return elem_bytes == 1 ? launch_h_fixed_warp<uint8_t>(in, out, rows, slots, hw, s)
+                         : launch_h_fixed_warp<uint16_t>(in, out, rows, slots, hw, s);
 }
 
 // B1's vertical stage (v_chip_bytes(r, 1) <= kMaxSmemBytes, r <= 897): (2*col + k) /

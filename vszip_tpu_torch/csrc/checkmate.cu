@@ -50,6 +50,8 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "common.cuh"
+
 namespace {
 
 constexpr int kThreads = 256;  // 8 warps: one tile row of 32 words per warp at a time
@@ -61,11 +63,6 @@ constexpr int kPitch = kCols + 2 * kPad;
 constexpr int kTileRows = kRows + 4;  // rows y0-2 .. y0+kRows+1
 constexpr int kSlot = kPitch * kTileRows;
 constexpr int kMaxGridZ = 65535;
-
-__device__ __forceinline__ void cp_async16(void* dst, const void* src) {
-  const unsigned d = (unsigned)__cvta_generic_to_shared(dst);
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(d), "l"(src));
-}
 
 __device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n" ::); }
 

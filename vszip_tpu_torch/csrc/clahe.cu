@@ -56,8 +56,7 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
-#include <mutex>
-#include <vector>
+#include "common.cuh"
 
 namespace {
 
@@ -218,41 +217,6 @@ __global__ void __launch_bounds__(kMaxThreads, 2)
       }
     }
   }
-}
-
-// SMs times the blocks of `threads` threads and `bytes` of dynamic shared
-// memory that one SM holds, queried once per (device, kernel, threads,
-// bytes).  The kernel is allowed kSmemTableBytes of dynamic shared memory.
-cudaError_t resident_blocks(const void* kernel, int threads, size_t bytes, long long* blocks) {
-  struct Seen {
-    int dev;
-    const void* kernel;
-    int threads;
-    size_t bytes;
-    long long blocks;
-  };
-  static std::mutex mu;
-  static std::vector<Seen> seen;
-  int dev;
-  cudaError_t e = cudaGetDevice(&dev);
-  if (e != cudaSuccess) return e;
-  std::lock_guard<std::mutex> lock(mu);
-  for (const Seen& s : seen) {
-    if (s.dev == dev && s.kernel == kernel && s.threads == threads && s.bytes == bytes) {
-      *blocks = s.blocks;
-      return cudaSuccess;
-    }
-  }
-  int sms, per_sm;
-  e = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                           kSmemTableBytes);
-  if (e == cudaSuccess) e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-  if (e == cudaSuccess)
-    e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, threads, bytes);
-  if (e != cudaSuccess) return e;
-  *blocks = (long long)sms * (per_sm > 0 ? per_sm : 1);
-  seen.push_back({dev, kernel, threads, bytes, *blocks});
-  return cudaSuccess;
 }
 
 template <bool kSmem, int kVec>

@@ -58,9 +58,8 @@
 #include <stdint.h>
 
 #include <algorithm>
-#include <mutex>
-#include <utility>
-#include <vector>
+
+#include "common.cuh"
 
 namespace {
 
@@ -328,39 +327,18 @@ __global__ void __launch_bounds__(kThreads, 2)
   }
 }
 
-// Blocks of kThreads of this instantiation that an SM of device `dev`
-// holds, queried once per device (cards of a mesh may differ).
-template <bool kJpeg, bool kWide, bool kVec>
-cudaError_t resident_blocks(int dev, int* blocks) {
-  static std::mutex mu;
-  static std::vector<std::pair<int, int>> seen;  // (device, blocks)
-  std::lock_guard<std::mutex> lock(mu);
-  for (const auto& d : seen) {
-    if (d.first == dev) {
-      *blocks = d.second;
-      return cudaSuccess;
-    }
-  }
-  const cudaError_t e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-      blocks, compress_kernel<kJpeg, kWide, kVec>, kThreads, 0);
-  if (e != cudaSuccess) return e;
-  seen.emplace_back(dev, *blocks);
-  return cudaSuccess;
-}
-
 template <bool kJpeg, bool kWide, bool kVec>
 int launch(const uint8_t* x, uint8_t* out, int n, int h, int w, int dc_prec,
            const Tables& tab, cudaStream_t s) {
-  int dev = 0, sms = 0, resident = 0;
-  cudaError_t e = cudaGetDevice(&dev);
-  if (e == cudaSuccess) e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-  if (e == cudaSuccess) e = resident_blocks<kJpeg, kWide, kVec>(dev, &resident);
+  long long resident;  // on the current device (cards of a mesh may differ)
+  const cudaError_t e = resident_blocks(
+      reinterpret_cast<const void*>(compress_kernel<kJpeg, kWide, kVec>), kThreads, 0, &resident);
   if (e != cudaSuccess) return (int)e;
   const long long xblocks = ((long long)((w + 7) / 8) * ((h + 7) / 8) + kThreads - 1) / kThreads;
   if (xblocks > 0x7fffffffLL) return (int)cudaErrorInvalidConfiguration;
   // frame groups: as many as fill the resident blocks in one wave
   const long long g = std::max(1LL, std::min<long long>(
-      {(long long)n, (long long)sms * resident / xblocks, (long long)kMaxGridY}));
+      {(long long)n, resident / xblocks, (long long)kMaxGridY}));
   compress_kernel<kJpeg, kWide, kVec><<<dim3((unsigned)xblocks, (unsigned)g), kThreads, 0, s>>>(
       x, out, n, h, w, dc_prec, tab);
   return (int)cudaGetLastError();

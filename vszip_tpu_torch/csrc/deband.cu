@@ -47,8 +47,7 @@
 #include <math.h>
 #include <stdint.h>
 
-#include <mutex>
-#include <vector>
+#include "common.cuh"
 
 namespace {
 
@@ -68,7 +67,6 @@ constexpr int kM2Rows = kM2TileY * kM2TileX / (4 * kM2Threads);
 static_assert(kM2TileX == 64 && kM2Rows * 4 * kM2Threads == kM2TileY * kM2TileX,
               "16 lanes of 4 columns a row, whole rows a thread");
 constexpr int kM2Group = 4;  // pairs of frames an m2_tile item takes from one tile
-constexpr size_t kMaxSmemBytes = 232448;
 
 // A double constant rounded once to float, as NumPy's np.float32(v) does.
 #define F32(v) static_cast<float>(v)
@@ -294,11 +292,6 @@ __global__ void m2_kernel(const uint16_t* __restrict__ x, const int* __restrict_
                                                 __ldg(src + o3), __ldg(src + o2),
                                                 __ldg(src + o4), thr, 0, 0);
   }
-}
-
-__device__ __forceinline__ void cp_async16(void* dst, const void* src) {
-  const unsigned d = (unsigned)__cvta_generic_to_shared(dst);
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(d), "l"(src));
 }
 
 __device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n" ::); }
@@ -554,42 +547,6 @@ void launch_center(const uint16_t* x, const int* vmap, int* out, int n, int h, i
                                                                  thr1, thr2);
 }
 
-// The blocks of `kernel` (kM2Threads threads, `bytes` of dynamic shared
-// memory) that stay resident on the current device, at least one per SM;
-// queried once per (device, kernel, bytes).  The kernel is allowed the most
-// dynamic shared memory a block may take.
-cudaError_t resident_blocks(const void* kernel, size_t bytes, long long* blocks) {
-  struct Seen {
-    int dev;
-    const void* kernel;
-    size_t bytes;
-    long long blocks;
-  };
-  static std::mutex mu;
-  static std::vector<Seen> seen;
-  int dev;
-  cudaError_t e = cudaGetDevice(&dev);
-  if (e != cudaSuccess) return e;
-  std::lock_guard<std::mutex> lock(mu);
-  for (const Seen& s : seen) {
-    if (s.dev == dev && s.kernel == kernel && s.bytes == bytes) {
-      *blocks = s.blocks;
-      return cudaSuccess;
-    }
-  }
-  int sms, per_sm;
-  e = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                           (int)kMaxSmemBytes);
-  if (e == cudaSuccess) e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-  if (e == cudaSuccess) {
-    e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, kM2Threads, bytes);
-  }
-  if (e != cudaSuccess) return e;
-  *blocks = (long long)sms * (per_sm > 0 ? per_sm : 1);
-  seen.push_back({dev, kernel, bytes, *blocks});
-  return cudaSuccess;
-}
-
 template <bool BLUR_FIRST, bool kVec>
 int launch_m2_tile(const uint16_t* x, const int* key, int* out, int n, int h, int w, int rmax,
                    int thr, cudaStream_t s) {
@@ -601,7 +558,7 @@ int launch_m2_tile(const uint16_t* x, const int* key, int* out, int n, int h, in
   if (items == 0) return 0;
   const void* kernel = reinterpret_cast<const void*>(m2_tile_kernel<BLUR_FIRST, kVec>);
   long long blocks;
-  const cudaError_t e = resident_blocks(kernel, tl.bytes(), &blocks);
+  const cudaError_t e = resident_blocks(kernel, kM2Threads, tl.bytes(), &blocks);
   if (e != cudaSuccess) return (int)e;
   if (blocks > items) blocks = items;
   const bool vec4 = w % 4 == 0 && (uintptr_t)out % 16 == 0 && (uintptr_t)key % 16 == 0;

@@ -114,6 +114,8 @@
 
 #include <initializer_list>
 
+#include "common.cuh"
+
 namespace cg = cooperative_groups;
 
 namespace {
@@ -127,13 +129,11 @@ constexpr size_t kSmemBudget = 48 * 1024;  // deltas in shared memory up to this
 // and the producers' own
 constexpr int kBarFull = 1, kBarEmpty = 3, kBarProd = 5;
 // B10: threads per block and columns per thread at most, blocks per frame
-// (the portable cluster size) and ring stages at most, and the shared
-// memory a block may take
+// (the portable cluster size) and ring stages at most
 constexpr int kVcheckMaxThreads = 1024;
 constexpr int kVcheckCols = 2;
 constexpr int kVcheckCluster = 8;
 constexpr int kVcheckRing = 4;
-constexpr size_t kMaxSmemBytes = 232448;
 
 // The chunk width, the delta bits and deltas per word (a chunk holds whole
 // words), the producer warps (warp prod runs the DP), and the pitch of a
@@ -808,11 +808,6 @@ __device__ __forceinline__ void cluster_arrive() {
 }
 __device__ __forceinline__ void cluster_wait() {
   asm volatile("barrier.cluster.wait.acquire;" ::: "memory");
-}
-
-__device__ __forceinline__ void cp_async16(float* dst, const float* src) {
-  const unsigned d = (unsigned)__cvta_generic_to_shared(dst);
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;" ::"r"(d), "l"(src) : "memory");
 }
 
 __device__ __forceinline__ uint32_t smem_addr(const void* p) {

@@ -42,11 +42,6 @@ MAX_PLANES = 3
 _DTYPES = (torch.uint8, torch.uint16, torch.float16, torch.float32)
 
 
-def reset_launches() -> None:
-    for k in LAUNCHES:
-        LAUNCHES[k] = 0
-
-
 class Window(NamedTuple):
     """One plane of an algorithm-2 call: the (N, H, W) source, the plane its
     range keys come from (the source itself, or the joint ref's plane), the
@@ -156,18 +151,14 @@ def bilateral_window_ref(windows) -> tuple:
 
 
 # ---------------------------------------------------------------------------
-# bind (the library is built by ``_build`` at the first launch)
+# entry points (the library is built by ``_build`` at the first launch)
 # ---------------------------------------------------------------------------
 
-@lru_cache(maxsize=1)
-def _lib() -> ctypes.CDLL:
-    lib = _build.load("bilateral")
-    p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-    # pointers, ints and floats per plane, then planes, n, dtype, has_ref, peak, stream
-    lib.vz_bilateral_window.argtypes = [p, p, p, i, i, i, i, f, p]
-    lib.vz_bilateral_window_on_chip.argtypes = [i, i]
-    lib.vz_bilateral_window.restype = lib.vz_bilateral_window_on_chip.restype = ctypes.c_int
-    return lib
+# pointers, ints and floats per plane, then planes, n, dtype, has_ref, peak
+_WINDOW = _build.kernel("bilateral", "vz_bilateral_window", *[ctypes.c_void_p] * 3,
+                        *[ctypes.c_int] * 4, ctypes.c_float)
+_WINDOW_ON_CHIP = _build.entry("bilateral", "vz_bilateral_window_on_chip", ctypes.c_int,
+                               ctypes.c_int)
 
 
 def _samples(radius: int, step: int) -> int:
@@ -245,10 +236,8 @@ def bilateral_window(windows) -> tuple:
         flts += [upper, scale, c, w0]
         offset += wts.size
     has_ref = any(win.ref.data_ptr() != win.src.data_ptr() for win in windows)
-    with torch.cuda.device(x.device):
-        _build.check(_lib().vz_bilateral_window, (ctypes.c_void_p * len(ptrs))(*ptrs),
-                     (ctypes.c_int * len(ints))(*ints), (ctypes.c_float * len(flts))(*flts),
-                     len(windows), x.shape[0], _DTYPES.index(x.dtype), int(has_ref),
-                     windows[0].peak, _build.stream(x))
+    _WINDOW(x.device, (ctypes.c_void_p * len(ptrs))(*ptrs), (ctypes.c_int * len(ints))(*ints),
+            (ctypes.c_float * len(flts))(*flts), len(windows), x.shape[0],
+            _DTYPES.index(x.dtype), int(has_ref), windows[0].peak)
     LAUNCHES["bilateral_window"] += 1
     return outs

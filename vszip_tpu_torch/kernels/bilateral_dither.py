@@ -37,7 +37,6 @@ which CUDA torch turns into a reciprocal multiply).
 from __future__ import annotations
 
 import ctypes
-from functools import lru_cache
 
 import torch
 from torch.utils.weak import WeakIdKeyDictionary
@@ -50,11 +49,6 @@ LAUNCHES = trace.register_launches({"dense_blur": 0, "subspl_blur": 0})
 
 NBR_POINT_LISTS = 23
 _DTYPES = (torch.uint8, torch.uint16, torch.float32)
-
-
-def reset_launches() -> None:
-    for k in LAUNCHES:
-        LAUNCHES[k] = 0
 
 
 # ---------------------------------------------------------------------------
@@ -141,20 +135,14 @@ def subspl_blur_ref(x: torch.Tensor, ref: torch.Tensor | None, r: int, start: to
 
 
 # ---------------------------------------------------------------------------
-# bind (the library is built by ``_build`` at the first launch)
+# entry points (the library is built by ``_build`` at the first launch)
 # ---------------------------------------------------------------------------
 
-@lru_cache(maxsize=1)
-def _lib() -> ctypes.CDLL:
-    lib = _build.load("bilateral_dither")
-    p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-    # pointers, then dtype, has_ref, n, h, w, r (and k), m, wmax, swmin, peak, stream
-    lib.vz_bd_dense.argtypes = [p] * 3 + [i] * 6 + [f] * 4 + [p]
-    lib.vz_bd_subspl.argtypes = [p] * 5 + [i] * 7 + [f] * 4 + [p]
-    lib.vz_bd_subspl_band.argtypes = [p] * 2 + [i] * 7 + [p]
-    lib.vz_bd_dense.restype = lib.vz_bd_subspl.restype = ctypes.c_int
-    lib.vz_bd_subspl_band.restype = ctypes.c_int
-    return lib
+# pointers, then dtype, has_ref, n, h, w, r (and k), m, wmax, swmin, peak
+_P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+_DENSE = _build.kernel("bilateral_dither", "vz_bd_dense", *[_P] * 3, *[_I] * 6, *[_F] * 4)
+_SUBSPL = _build.kernel("bilateral_dither", "vz_bd_subspl", *[_P] * 5, *[_I] * 7, *[_F] * 4)
+_SUBSPL_BAND = _build.entry("bilateral_dither", "vz_bd_subspl_band", *[_P] * 2, *[_I] * 7, _P)
 
 
 def _code(x: torch.Tensor) -> int:
@@ -202,8 +190,8 @@ def _subspl_band(x: torch.Tensor, ref: torch.Tensor | None, r: int,
     package's surface: the card tests and tools read the layout with it."""
     n, h, w = x.shape
     out = (ctypes.c_int * 3)()
-    band = _lib().vz_bd_subspl_band(x.data_ptr(), (ref if ref is not None else x).data_ptr(),
-                                    _code(x), int(ref is not None), n, h, w, r, k, out)
+    band = _SUBSPL_BAND(x.data_ptr(), (ref if ref is not None else x).data_ptr(), _code(x),
+                        int(ref is not None), n, h, w, r, k, out)
     return tuple(out) if band else None
 
 
@@ -221,9 +209,8 @@ def dense_blur(x: torch.Tensor, ref: torch.Tensor | None, r: int, m: float, wmax
     _check("dense_blur", x, ref, r)
     n, h, w = x.shape
     out = torch.empty_like(x)
-    with torch.cuda.device(x.device):
-        _build.check(_lib().vz_bd_dense, *_ptrs(x, ref, out), _code(x), int(ref is not None),
-                     n, h, w, r, m, wmax, swmin, peak, _build.stream(x))
+    _DENSE(x.device, *_ptrs(x, ref, out), _code(x), int(ref is not None), n, h, w, r, m, wmax,
+           swmin, peak)
     LAUNCHES["dense_blur"] += 1
     return out
 
@@ -247,9 +234,7 @@ def subspl_blur(x: torch.Tensor, ref: torch.Tensor | None, r: int, start: torch.
                          "(23, k, 2) int16 table on x's device")
     _check_table(dyx, r)
     out = torch.empty_like(x)
-    with torch.cuda.device(x.device):
-        _build.check(_lib().vz_bd_subspl, *_ptrs(x, ref, out), start.data_ptr(),
-                     dyx.data_ptr(), _code(x), int(ref is not None), n, h, w, r,
-                     dyx.shape[1], m, wmax, swmin, peak, _build.stream(x))
+    _SUBSPL(x.device, *_ptrs(x, ref, out), start.data_ptr(), dyx.data_ptr(), _code(x),
+            int(ref is not None), n, h, w, r, dyx.shape[1], m, wmax, swmin, peak)
     LAUNCHES["subspl_blur"] += 1
     return out

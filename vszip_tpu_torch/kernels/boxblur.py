@@ -33,7 +33,7 @@ where its rings would not fit a block's shared memory, or for more than
 ``V_CHIP_PASSES`` passes (``v_fixed_on_chip``), ``v_fixed`` walks one column
 per thread and ping-pongs the passes through device memory.  ``h_fixed``
 runs one warp a row with the row in registers for all passes where
-``h_fixed_in_registers`` says so (rows up to about 2,000 samples, r <= 23):
+``h_fixed_warp_shape`` gives a shape (rows up to about 2,000 samples, r <= 23):
 each lane holds runs of exactly 2r + 1 samples, so a window's two ends sit
 in the same register of neighbouring runs, and a pass is a 3-input add, a
 multiply-add and a shift a sample, with no shared memory and no barrier.
@@ -66,39 +66,32 @@ LAUNCHES = trace.register_launches({"ct_blur_int": 0, "rt_blur_h": 0, "rt_blur_v
                                     "rt_blur_v": 0})
 # The variant each CUDA launch of ``v_fixed`` and ``h_fixed`` took: the
 # on-chip ``v_chip`` or the column walk ``v_fixed``; ``h_fixed`` one warp a
-# row in registers (``h_fixed_in_registers``), or a block a row with the row
+# row in registers (``h_fixed_warp_shape``), or a block a row with the row
 # in shared memory or in a global scratch buffer.  ``ct_blur_int``'s
 # horizontal stage counts here too; its vertical stage is ``ct_v_chip``.
 VARIANTS = trace.register_launches({"v_chip": 0, "v_fixed": 0, "h_fixed_warp": 0,
                                     "h_fixed_shared": 0, "h_fixed_scratch": 0})
 
-
-def reset_launches() -> None:
-    for d in (LAUNCHES, VARIANTS):
-        for k in d:
-            d[k] = 0
-
-
 # ``v_chip`` (csrc/boxblur.cu) unrolls up to V_CHIP_PASSES passes, and one
 # warp keeps passes * (2r + 1) + V_CHIP_AHEAD_ROWS rows of a 128-byte strip
-# in shared memory, at most MAX_SMEM_BYTES a block (the kernel's
+# in shared memory, at most _build.MAX_SMEM_BYTES a block (the kernel's
 # kChipPasses, kChipAheadRows, kStripBytes and kMaxSmemBytes).
 V_CHIP_PASSES = 6
 V_CHIP_AHEAD_ROWS = 20
 V_CHIP_ROW_BYTES = 128
-MAX_SMEM_BYTES = 232448
 
 
 def v_fixed_on_chip(radius: int, passes: int) -> bool:
     """Whether ``v_chip`` takes `passes` vertical passes of `radius`; else
     the wrapper takes the column walk ``v_fixed``."""
     rows = passes * (2 * radius + 1) + V_CHIP_AHEAD_ROWS
-    return passes <= V_CHIP_PASSES and rows * V_CHIP_ROW_BYTES <= MAX_SMEM_BYTES
+    return passes <= V_CHIP_PASSES and rows * V_CHIP_ROW_BYTES <= _build.MAX_SMEM_BYTES
 
 
-# ``h_fixed`` in registers (csrc/boxblur.cu kWarpRuns): (slots, chunks) runs;
-# a lane holds up to `chunks` runs of n = 2r + 1 <= slots samples, one a
-# chunk of `slots` registers, and the first run whose slots take n is used.
+# ``h_fixed`` in registers (csrc/boxblur.cu kWarpRuns, whose instantiations
+# ``vz_h_fixed_warp`` launches): (slots, chunks) runs; a lane holds up to
+# `chunks` runs of n = 2r + 1 <= slots samples, one a chunk of `slots`
+# registers, and the first run whose slots take n is used.
 H_WARP_RUNS = ((4, 22), (8, 13), (16, 8), (24, 4), (28, 3), (32, 3), (48, 2))
 
 
@@ -110,8 +103,9 @@ def h_fixed_warp_shape(w: int, radius: int, passes: int = 1):
     the row with `a` >= passes * r samples of its mirror-periodic extension
     before it (lane `l0`'s first run starting at sample -r) and passes * r
     after it.  None past the runs (r > 23), where no chunk count of the
-    first run taking n holds the row, and where r > w (the comptime quirk)
-    (``h_warp_shape`` in csrc/boxblur.cu)."""
+    first run taking n holds the row, and where r > w (the comptime quirk).
+    The wrapper launches the design this chooses; the library checks that
+    a shape it is given holds the row."""
     if not 1 <= radius <= w or passes < 1:
         return None
     n = 2 * radius + 1
@@ -248,24 +242,19 @@ def ct_blur_int_ref(x: torch.Tensor, radius: int) -> torch.Tensor:
 
 
 # ---------------------------------------------------------------------------
-# bind (the library is built by ``_build`` at the first launch)
+# entry points (the library is built by ``_build`` at the first call)
 # ---------------------------------------------------------------------------
 
-@lru_cache(maxsize=1)
-def _lib() -> ctypes.CDLL:
-    lib = _build.load("boxblur")
-    p, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-    lib.vz_v_fixed.argtypes = [p, p, p, i, i, i, i, i, i, p]
-    lib.vz_v_chip.argtypes = [p, p, i, i, i, i, i, i, p]
-    lib.vz_h_fixed.argtypes = [p, p, p, i, ll, i, i, i, p]
-    lib.vz_h_fixed_scratch_words.argtypes = [ll, i, i]
-    lib.vz_h_fixed_scratch_words.restype = ll
-    lib.vz_h_fixed_in_registers.argtypes = [i, i, i]
-    lib.vz_h_fixed_in_registers.restype = i
-    lib.vz_ct_v_chip.argtypes = [p, p, i, i, i, i, i, ctypes.c_uint, i, p]
-    for fn in (lib.vz_v_fixed, lib.vz_v_chip, lib.vz_h_fixed, lib.vz_ct_v_chip):
-        fn.restype = ctypes.c_int
-    return lib
+_P, _I, _LL = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+_V_FIXED = _build.kernel("boxblur", "vz_v_fixed", _P, _P, _P, _I, _I, _I, _I, _I, _I)
+_V_CHIP = _build.kernel("boxblur", "vz_v_chip", _P, _P, _I, _I, _I, _I, _I, _I)
+_H_FIXED = _build.kernel("boxblur", "vz_h_fixed", _P, _P, _P, _I, _LL, _I, _I, _I)
+_H_FIXED_WARP = _build.kernel("boxblur", "vz_h_fixed_warp", _P, _P, _I, _LL, _I, _I, _I,
+                              _I, _I, _I, _I)
+_H_FIXED_SCRATCH_WORDS = _build.entry("boxblur", "vz_h_fixed_scratch_words", _LL, _I, _I,
+                                      restype=_LL)
+_CT_V_CHIP = _build.kernel("boxblur", "vz_ct_v_chip", _P, _P, _I, _I, _I, _I, _I,
+                         ctypes.c_uint, _I)
 
 
 def _check(x: torch.Tensor, radius: int, axes: tuple[int, ...], passes: int = 1) -> None:
@@ -290,17 +279,16 @@ def _check(x: torch.Tensor, radius: int, axes: tuple[int, ...], passes: int = 1)
 def _v_fixed(x: torch.Tensor, radius: int, passes: int) -> torch.Tensor:
     n, h, w = x.shape
     out = torch.empty_like(x)
-    with torch.cuda.device(x.device):
-        if v_fixed_on_chip(radius, passes):
-            _build.check(_lib().vz_v_chip, x.data_ptr(), out.data_ptr(), x.element_size(),
-                         n, h, w, radius, passes, _build.stream(x))
-            VARIANTS["v_chip"] += 1
-        else:
-            scratch = torch.empty_like(x) if passes > 1 else None
-            _build.check(_lib().vz_v_fixed, x.data_ptr(), out.data_ptr(),
-                         None if scratch is None else scratch.data_ptr(), x.element_size(),
-                         n, h, w, radius, passes, _build.stream(x))
-            VARIANTS["v_fixed"] += 1
+    if v_fixed_on_chip(radius, passes):
+        _V_CHIP(x.device, x.data_ptr(), out.data_ptr(), x.element_size(), n, h, w, radius,
+                passes)
+        VARIANTS["v_chip"] += 1
+    else:
+        scratch = torch.empty_like(x) if passes > 1 else None
+        _V_FIXED(x.device, x.data_ptr(), out.data_ptr(),
+                 None if scratch is None else scratch.data_ptr(), x.element_size(), n, h, w,
+                 radius, passes)
+        VARIANTS["v_fixed"] += 1
     return out
 
 
@@ -308,23 +296,27 @@ def _ct_v(x: torch.Tensor, radius: int) -> torch.Tensor:
     """B1's vertical stage: the quantised column sums (``ct_v_chip``)."""
     n, h, w = x.shape
     out = torch.empty_like(x)
-    with torch.cuda.device(x.device):
-        _build.check(_lib().vz_ct_v_chip, x.data_ptr(), out.data_ptr(), x.element_size(),
-                     n, h, w, radius, *quantizer(radius), _build.stream(x))
+    _CT_V_CHIP(x.device, x.data_ptr(), out.data_ptr(), x.element_size(), n, h, w, radius,
+               *quantizer(radius))
     return out
 
 
 def _h_fixed(x: torch.Tensor, radius: int, passes: int) -> torch.Tensor:
     n, h, w = x.shape
     out = torch.empty_like(x)
-    words = _lib().vz_h_fixed_scratch_words(n * h, w, radius)
+    shape = h_fixed_warp_shape(w, radius, passes)
+    if shape is not None:
+        slots, _, chunks, l0, a = shape
+        _H_FIXED_WARP(x.device, x.data_ptr(), out.data_ptr(), x.element_size(), n * h, w,
+                      radius, passes, slots, chunks, l0, a)
+        VARIANTS["h_fixed_warp"] += 1
+        return out
+    words = _H_FIXED_SCRATCH_WORDS(n * h, w, radius)
     scratch = torch.empty(words, dtype=torch.int32, device=x.device) if words else None
-    with torch.cuda.device(x.device):
-        _build.check(_lib().vz_h_fixed, x.data_ptr(), out.data_ptr(),
-                     None if scratch is None else scratch.data_ptr(), x.element_size(),
-                     n * h, w, radius, passes, _build.stream(x))
-    VARIANTS["h_fixed_warp" if h_fixed_in_registers(w, radius, passes)
-             else "h_fixed_scratch" if words else "h_fixed_shared"] += 1
+    _H_FIXED(x.device, x.data_ptr(), out.data_ptr(),
+             None if scratch is None else scratch.data_ptr(), x.element_size(), n * h, w,
+             radius, passes)
+    VARIANTS["h_fixed_scratch" if words else "h_fixed_shared"] += 1
     return out
 
 

@@ -23,7 +23,6 @@ The division truncates toward zero (Zig's ``@divTrunc``): CUDA's integer
 from __future__ import annotations
 
 import ctypes
-from functools import lru_cache
 
 import torch
 
@@ -32,11 +31,6 @@ from .. import _build, trace
 # Launches made on the CUDA path.  The wrapper adds one where it launches its
 # kernel and nowhere else; the plain version never counts.
 LAUNCHES = trace.register_launches({"checkmate": 0})
-
-
-def reset_launches() -> None:
-    for k in LAUNCHES:
-        LAUNCHES[k] = 0
 
 
 # ---------------------------------------------------------------------------
@@ -89,16 +83,11 @@ def checkmate_ref(x: torch.Tensor, thr: int, tmax: int, tthr2: int) -> torch.Ten
 
 
 # ---------------------------------------------------------------------------
-# bind (the library is built by ``_build`` at the first launch)
+# entry point (the library is built by ``_build`` at the first launch)
 # ---------------------------------------------------------------------------
 
-@lru_cache(maxsize=1)
-def _lib() -> ctypes.CDLL:
-    lib = _build.load("checkmate")
-    p, i = ctypes.c_void_p, ctypes.c_int
-    lib.vz_checkmate.argtypes = [p, p, i, i, i, i, i, i, p]
-    lib.vz_checkmate.restype = ctypes.c_int
-    return lib
+_CHECKMATE = _build.kernel("checkmate", "vz_checkmate", ctypes.c_void_p, ctypes.c_void_p,
+                           *[ctypes.c_int] * 6)
 
 
 def _check(x: torch.Tensor, thr: int, tmax: int, tthr2: int) -> None:
@@ -125,8 +114,6 @@ def checkmate(x: torch.Tensor, thr: int, tmax: int, tthr2: int) -> torch.Tensor:
     _check(x, thr, tmax, tthr2)
     n, h, w = x.shape
     out = torch.empty_like(x)
-    with torch.cuda.device(x.device):
-        _build.check(_lib().vz_checkmate, x.data_ptr(), out.data_ptr(), n, h, w, thr, tmax,
-                     tthr2, _build.stream(x))
+    _CHECKMATE(x.device, x.data_ptr(), out.data_ptr(), n, h, w, thr, tmax, tthr2)
     LAUNCHES["checkmate"] += 1
     return out

@@ -31,7 +31,6 @@ on Hopper the table sits in shared memory and the pixel's word is one load.
 from __future__ import annotations
 
 import ctypes
-from functools import lru_cache
 
 import torch
 
@@ -44,11 +43,6 @@ HIST = 256
 CHUNK = 16  # bytes of a row a thread owns (csrc/clahe.cu kChunk)
 MAX_THREADS = 512  # a block's threads at most (kMaxThreads checks it)
 SMEM_TABLE_BYTES = 96 * 1024  # tables up to this size go to shared memory (kSmemTableBytes)
-
-
-def reset_launches() -> None:
-    for k in LAUNCHES:
-        LAUNCHES[k] = 0
 
 
 # ---------------------------------------------------------------------------
@@ -114,16 +108,11 @@ def block_shape(w: int) -> tuple[int, int]:
 
 
 # ---------------------------------------------------------------------------
-# bind (the library is built by ``_build`` at the first launch)
+# entry point (the library is built by ``_build`` at the first launch)
 # ---------------------------------------------------------------------------
 
-@lru_cache(maxsize=1)
-def _lib() -> ctypes.CDLL:
-    lib = _build.load("clahe")
-    p, i = ctypes.c_void_p, ctypes.c_int
-    lib.vz_clahe8_lookup.argtypes = [p, p, p, p, p] + [i] * 11 + [p]
-    lib.vz_clahe8_lookup.restype = ctypes.c_int
-    return lib
+_LOOKUP = _build.kernel("clahe", "vz_clahe8_lookup", *[ctypes.c_void_p] * 5,
+                        *[ctypes.c_int] * 11)
 
 
 def _check(x, tab32, ya, xa, tile_h, tile_w) -> tuple[int, int]:
@@ -166,10 +155,8 @@ def clahe8_lookup(x: torch.Tensor, tab32: torch.Tensor, ya: torch.Tensor,
     n, h, w = x.shape
     out = torch.empty_like(x)
     vec = chunk_vector(w, x.data_ptr(), out.data_ptr())
-    with torch.cuda.device(x.device):
-        _build.check(_lib().vz_clahe8_lookup, x.data_ptr(), tab32.data_ptr(),
-                     ya.data_ptr(), xa.data_ptr(), out.data_ptr(), n, h, w, tile_h,
-                     tile_w, ry_n, rx_n, int(table_on_chip(ry_n, rx_n)), vec,
-                     *block_shape(w), _build.stream(x))
+    _LOOKUP(x.device, x.data_ptr(), tab32.data_ptr(), ya.data_ptr(), xa.data_ptr(),
+            out.data_ptr(), n, h, w, tile_h, tile_w, ry_n, rx_n,
+            int(table_on_chip(ry_n, rx_n)), vec, *block_shape(w))
     LAUNCHES["clahe8_lookup"] += 1
     return out

@@ -21,7 +21,6 @@ raises.  Nothing falls back.
 from __future__ import annotations
 
 import ctypes
-from functools import lru_cache
 
 import torch
 
@@ -30,11 +29,6 @@ from .. import _build, trace
 # Launches made on the CUDA path.  The wrapper adds one where it launches its
 # kernel and nowhere else; the plain version never counts.
 LAUNCHES = trace.register_launches({"comb_mask": 0})
-
-
-def reset_launches() -> None:
-    for k in LAUNCHES:
-        LAUNCHES[k] = 0
 
 
 # ---------------------------------------------------------------------------
@@ -93,16 +87,11 @@ def comb_mask_ref(x: torch.Tensor, cthresh: int, mthresh: int, metric_1: bool,
 
 
 # ---------------------------------------------------------------------------
-# bind (the library is built by ``_build`` at the first launch)
+# entry point (the library is built by ``_build`` at the first launch)
 # ---------------------------------------------------------------------------
 
-@lru_cache(maxsize=1)
-def _lib() -> ctypes.CDLL:
-    lib = _build.load("comb_mask")
-    p, i = ctypes.c_void_p, ctypes.c_int
-    lib.vz_comb_mask.argtypes = [p, p, i, i, i, i, i, i, i, p]
-    lib.vz_comb_mask.restype = ctypes.c_int
-    return lib
+_COMB_MASK = _build.kernel("comb_mask", "vz_comb_mask", ctypes.c_void_p, ctypes.c_void_p,
+                           *[ctypes.c_int] * 7)
 
 
 def _check(x: torch.Tensor, cthresh: int, mthresh: int) -> None:
@@ -130,8 +119,7 @@ def comb_mask(x: torch.Tensor, cthresh: int, mthresh: int, metric_1: bool,
     _check(x, cthresh, mthresh)
     n, h, w = x.shape
     out = torch.empty_like(x)
-    with torch.cuda.device(x.device):
-        _build.check(_lib().vz_comb_mask, x.data_ptr(), out.data_ptr(), n, h, w, cthresh,
-                     mthresh, int(metric_1), int(expand), _build.stream(x))
+    _COMB_MASK(x.device, x.data_ptr(), out.data_ptr(), n, h, w, cthresh, mthresh,
+               int(metric_1), int(expand))
     LAUNCHES["comb_mask"] += 1
     return out

@@ -24,7 +24,6 @@ integer matmul.
 from __future__ import annotations
 
 import ctypes
-from functools import lru_cache
 
 import numpy as np
 import torch
@@ -35,11 +34,6 @@ from .. import _build, trace
 # kernel and nowhere else; the plain version never counts.
 LAUNCHES = trace.register_launches({"compress_plane": 0})
 TABLE = 64
-
-
-def reset_launches() -> None:
-    for k in LAUNCHES:
-        LAUNCHES[k] = 0
 
 
 # ---------------------------------------------------------------------------
@@ -246,16 +240,11 @@ def compress_plane_ref(x: torch.Tensor, qa, qb, jpeg: bool, dc_prec: int,
 
 
 # ---------------------------------------------------------------------------
-# bind (the library is built by ``_build`` at the first launch)
+# entry point (the library is built by ``_build`` at the first launch)
 # ---------------------------------------------------------------------------
 
-@lru_cache(maxsize=1)
-def _lib() -> ctypes.CDLL:
-    lib = _build.load("compress")
-    p, i = ctypes.c_void_p, ctypes.c_int
-    lib.vz_compress.argtypes = [p, p, p, p, i, i, i, i, i, i, p]
-    lib.vz_compress.restype = ctypes.c_int
-    return lib
+_COMPRESS = _build.kernel("compress", "vz_compress", *[ctypes.c_void_p] * 4,
+                          *[ctypes.c_int] * 6)
 
 
 def _table(t, name: str) -> ctypes.Array:
@@ -292,8 +281,7 @@ def compress_plane(x: torch.Tensor, qa, qb, jpeg: bool, dc_prec: int,
     ta, tb = _table(qa, "qa"), _table(qb, "qb")
     n, h, w = x.shape
     out = torch.empty_like(x)
-    with torch.cuda.device(x.device):
-        _build.check(_lib().vz_compress, x.data_ptr(), ta, tb, out.data_ptr(), n, h, w,
-                     int(jpeg), dc_prec, int(wide), _build.stream(x))
+    _COMPRESS(x.device, x.data_ptr(), ta, tb, out.data_ptr(), n, h, w, int(jpeg), dc_prec,
+              int(wide))
     LAUNCHES["compress_plane"] += 1
     return out

@@ -39,7 +39,6 @@ fit a block's shared memory (``m2_on_chip``: rmax > 50) the wrapper takes
 from __future__ import annotations
 
 import ctypes
-from functools import lru_cache
 
 import torch
 
@@ -51,20 +50,13 @@ LAUNCHES = trace.register_launches({"deband_center": 0, "deband_m2_center": 0})
 
 SEPARABLE_MODES = (1, 3, 4, 5, 6)
 
-
-def reset_launches() -> None:
-    for k in LAUNCHES:
-        LAUNCHES[k] = 0
-
-
 # ``m2_tile`` (csrc/deband.cu) holds a tile of (M2_TILE_Y + 2 rmax) x
 # (M2_TILE_X + 2 pad) positions, pad = rmax rounded up to 8 columns, for two
 # frames at a time, 8 bytes a position (the pair's 32-bit tile and the next
-# pair's two 16-bit tiles), at most MAX_SMEM_BYTES a block (the kernel's
+# pair's two 16-bit tiles), at most _build.MAX_SMEM_BYTES a block (the kernel's
 # kM2TileY, kM2TileX, M2Tile and kMaxSmemBytes).
 M2_TILE_Y = 64
 M2_TILE_X = 64
-MAX_SMEM_BYTES = 232448
 
 
 def m2_tile_shape(rmax: int) -> tuple[int, int]:
@@ -77,7 +69,7 @@ def m2_on_chip(rmax: int) -> bool:
     shared memory: rmax <= 50); else the wrapper takes ``m2_kernel``, whose
     taps are loads from device memory."""
     rows, cols = m2_tile_shape(rmax)
-    return rows * cols * 8 <= MAX_SMEM_BYTES
+    return rows * cols * 8 <= _build.MAX_SMEM_BYTES
 
 
 # ---------------------------------------------------------------------------
@@ -148,19 +140,13 @@ def deband_m2_center_ref(x: torch.Tensor, key: torch.Tensor, blur_first: bool,
 
 
 # ---------------------------------------------------------------------------
-# bind (the library is built by ``_build`` at the first launch)
+# entry points (the library is built by ``_build`` at the first launch)
 # ---------------------------------------------------------------------------
 
-@lru_cache(maxsize=1)
-def _lib() -> ctypes.CDLL:
-    lib = _build.load("deband")
-    p, i = ctypes.c_void_p, ctypes.c_int
-    lib.vz_deband_center.argtypes = [p, p, p, i, i, i, i, i, i, i, i, p]
-    lib.vz_deband_m2_center.argtypes = [p, p, p, i, i, i, i, i, i, p]
-    lib.vz_deband_m2_tile.argtypes = [p, p, p, i, i, i, i, i, i, p]
-    for fn in (lib.vz_deband_center, lib.vz_deband_m2_center, lib.vz_deband_m2_tile):
-        fn.restype = ctypes.c_int
-    return lib
+_P, _I = ctypes.c_void_p, ctypes.c_int
+_CENTER = _build.kernel("deband", "vz_deband_center", _P, _P, _P, *[_I] * 8)
+_M2_CENTER = _build.kernel("deband", "vz_deband_m2_center", _P, _P, _P, *[_I] * 6)
+_M2_TILE = _build.kernel("deband", "vz_deband_m2_tile", _P, _P, _P, *[_I] * 6)
 
 
 def _check(x: torch.Tensor, plane: torch.Tensor, rmax: int) -> None:
@@ -196,10 +182,8 @@ def deband_center(x: torch.Tensor, vmap: torch.Tensor, mode: int,
     n, h, w = x.shape
     out = torch.empty(x.shape, dtype=torch.int32, device=x.device)
     thr, thr1, thr2 = (int(t) for t in thr3)
-    with torch.cuda.device(x.device):
-        _build.check(_lib().vz_deband_center, x.data_ptr(), vmap.data_ptr(),
-                     out.data_ptr(), n, h, w, mode, int(blur_first), thr, thr1, thr2,
-                     _build.stream(x))
+    _CENTER(x.device, x.data_ptr(), vmap.data_ptr(), out.data_ptr(), n, h, w, mode,
+            int(blur_first), thr, thr1, thr2)
     LAUNCHES["deband_center"] += 1
     return out
 
@@ -213,9 +197,8 @@ def deband_m2_center(x: torch.Tensor, key: torch.Tensor, blur_first: bool,
     _check(x, key, rmax)
     n, h, w = x.shape
     out = torch.empty(x.shape, dtype=torch.int32, device=x.device)
-    fn = _lib().vz_deband_m2_tile if m2_on_chip(rmax) else _lib().vz_deband_m2_center
-    with torch.cuda.device(x.device):
-        _build.check(fn, x.data_ptr(), key.data_ptr(), out.data_ptr(), n, h, w, rmax,
-                     int(blur_first), int(thr), _build.stream(x))
+    launch = _M2_TILE if m2_on_chip(rmax) else _M2_CENTER
+    launch(x.device, x.data_ptr(), key.data_ptr(), out.data_ptr(), n, h, w, rmax,
+           int(blur_first), int(thr))
     LAUNCHES["deband_m2_center"] += 1
     return out

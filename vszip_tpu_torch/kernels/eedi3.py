@@ -32,7 +32,6 @@ gathers, the B_BLK batch padding) are not carried over.
 from __future__ import annotations
 
 import ctypes
-from functools import lru_cache
 
 import numpy as np
 import torch
@@ -45,11 +44,6 @@ BIG = np.float32(np.finfo(np.float32).max * 0.9)  # the DP's cost ceiling
 # Launches made on the CUDA path, per wrapper.  Each wrapper adds one where
 # it launches its kernel and nowhere else; the plain versions never count.
 LAUNCHES = trace.register_launches({"eedi3_fused": 0, "eedi3_fused_hp": 0, "vcheck": 0})
-
-
-def reset_launches() -> None:
-    for k in LAUNCHES:
-        LAUNCHES[k] = 0
 
 
 # ---------------------------------------------------------------------------
@@ -168,21 +162,15 @@ def vcheck_ref(dl, nb, dm, cint, init, w, mdis, hp, vcheck, rcp0, rcp1, rcp2, vt
 
 
 # ---------------------------------------------------------------------------
-# bind (the library is built by ``_build`` at the first launch)
+# entry points (the library is built by ``_build`` at the first launch)
 # ---------------------------------------------------------------------------
 
-@lru_cache(maxsize=1)
-def _lib() -> ctypes.CDLL:
-    lib = _build.load("eedi3")
-    p, i, f, d = ctypes.c_void_p, ctypes.c_int, ctypes.c_float, ctypes.c_double
-    lib.vz_eedi3_scratch_words.argtypes = [i, i, i]
-    lib.vz_eedi3_scratch_words.restype = ctypes.c_longlong
-    lib.vz_eedi3_fused.argtypes = [p, p, p, p, p, p, p, p, i, i, i, i, i,
-                                   f, d, f, f, f, p]
-    lib.vz_vcheck.argtypes = [p, p, p, p, p, p, i, i, i, i, i, i, f, f, f, f, p]
-    for fn in (lib.vz_eedi3_fused, lib.vz_vcheck):
-        fn.restype = ctypes.c_int
-    return lib
+_P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+_SCRATCH_WORDS = _build.entry("eedi3", "vz_eedi3_scratch_words", _I, _I, _I,
+                              restype=ctypes.c_longlong)
+_FUSED = _build.kernel("eedi3", "vz_eedi3_fused", *[_P] * 8, *[_I] * 5, _F, ctypes.c_double,
+                       _F, _F, _F)
+_VCHECK = _build.kernel("eedi3", "vz_vcheck", *[_P] * 6, *[_I] * 6, *[_F] * 4)
 
 
 def _check(name: str, t: torch.Tensor, dtype, shape, device) -> None:
@@ -215,17 +203,13 @@ def _fused(hp: bool, rows, w, mdis, nrad, alpha, beta, gamma, omab, bmask):
         _check("eedi3_fused's mask", bmask, torch.bool, (b, l, w), dev)
     out = torch.empty((b, l, w), dtype=torch.float32, device=dev)
     fpath = torch.empty((b, l, w), dtype=torch.int32, device=dev)
-    lib = _lib()
     # backtrack deltas that do not fit the block's shared memory go to a
     # global scratch of this many words per line
-    words = lib.vz_eedi3_scratch_words(w, mdis, int(hp))
+    words = _SCRATCH_WORDS(w, mdis, int(hp))
     scratch = torch.empty(b * l * words, dtype=torch.int32, device=dev)
-    with torch.cuda.device(dev):
-        _build.check(lib.vz_eedi3_fused, *(r.data_ptr() for r in rows),
-                     bmask.data_ptr() if bmask is not None else None,
-                     out.data_ptr(), fpath.data_ptr(), scratch.data_ptr() if words else None,
-                     b * l, w, mdis, nrad, int(hp), alpha, beta, gamma, omab, float(BIG),
-                     _build.stream(rows[0]))
+    _FUSED(dev, *(r.data_ptr() for r in rows), bmask.data_ptr() if bmask is not None else None,
+           out.data_ptr(), fpath.data_ptr(), scratch.data_ptr() if words else None, b * l, w,
+           mdis, nrad, int(hp), alpha, beta, gamma, omab, float(BIG))
     return out, fpath
 
 
@@ -282,9 +266,8 @@ def vcheck(dl, nb, dm, cint, init, w: int, mdis: int, hp: bool, vcheck: int,
                                ("init", init, torch.float32, (b, w))):
         _check(f"vcheck's {name}", t, dt, shape, dl.device)
     out = torch.empty_like(dl)
-    with torch.cuda.device(dl.device):
-        _build.check(_lib().vz_vcheck, dl.data_ptr(), nb.data_ptr(), dm.data_ptr(),
-                     cint.data_ptr(), init.data_ptr(), out.data_ptr(), n_off, b, w, mdis,
-                     int(hp), vcheck, rcp0, rcp1, rcp2, vt2, _build.stream(dl))
+    _VCHECK(dl.device, dl.data_ptr(), nb.data_ptr(), dm.data_ptr(), cint.data_ptr(),
+            init.data_ptr(), out.data_ptr(), n_off, b, w, mdis, int(hp), vcheck, rcp0, rcp1,
+            rcp2, vt2)
     LAUNCHES["vcheck"] += 1
     return out

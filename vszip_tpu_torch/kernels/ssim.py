@@ -52,11 +52,6 @@ RADIUS = 4
 _C2 = float(np.float32(0.0009))
 
 
-def reset_launches() -> None:
-    for k in LAUNCHES:
-        LAUNCHES[k] = 0
-
-
 def band_rows(w: int) -> int:
     """Rows per band of the partial sums (the TPU kernel's band height)."""
     return 64 if w <= 2560 else 32
@@ -166,18 +161,12 @@ def ssim_sums_ref(im1: torch.Tensor, im2: torch.Tensor, need_ssim: bool,
 
 
 # ---------------------------------------------------------------------------
-# bind (the library is built by ``_build`` at the first launch)
+# entry points (the library is built by ``_build`` at the first launch)
 # ---------------------------------------------------------------------------
 
-@lru_cache(maxsize=1)
-def _lib() -> ctypes.CDLL:
-    lib = _build.load("ssim")
-    p, i = ctypes.c_void_p, ctypes.c_int
-    lib.vz_ssim_partials.argtypes = [p, p, p, i, i, i, i, i, i, i, i, p]
-    lib.vz_ssim_partials.restype = ctypes.c_int
-    lib.vz_ssim_lane_columns.argtypes = [i] * 5
-    lib.vz_ssim_lane_columns.restype = ctypes.c_int
-    return lib
+_PARTIALS = _build.kernel("ssim", "vz_ssim_partials", *[ctypes.c_void_p] * 3,
+                          *[ctypes.c_int] * 8)
+_LANE_COLUMNS = _build.entry("ssim", "vz_ssim_lane_columns", *[ctypes.c_int] * 5)
 
 
 def _check(im1: torch.Tensor, im2: torch.Tensor) -> None:
@@ -199,7 +188,7 @@ def _check(im1: torch.Tensor, im2: torch.Tensor) -> None:
 def lane_columns(n: int, h: int, w: int, sms: int) -> int:
     """The kernel's columns a lane that the launcher takes for (N, H, W)
     planes on a card of `sms` SMs (builds the library)."""
-    return _lib().vz_ssim_lane_columns(n, h, w, band_rows(w), sms)
+    return _LANE_COLUMNS(n, h, w, band_rows(w), sms)
 
 
 @trace.spanned("vszip.kernel.ssim_sums", profiled=False)
@@ -217,10 +206,8 @@ def ssim_partials(im1: torch.Tensor, im2: torch.Tensor, need_ssim: bool,
     b = band_rows(w)
     vec = w % 2 == 0 and im1.data_ptr() % 8 == 0 and im2.data_ptr() % 8 == 0
     out = torch.empty((n, -(-h // b), 6, w), dtype=torch.float32, device=im1.device)
-    with torch.cuda.device(im1.device):
-        _build.check(_lib().vz_ssim_partials, im1.data_ptr(), im2.data_ptr(),
-                     out.data_ptr(), n, h, w, b, int(bool(need_ssim)),
-                     int(bool(need_err)), cols or 0, int(vec), _build.stream(im1))
+    _PARTIALS(im1.device, im1.data_ptr(), im2.data_ptr(), out.data_ptr(), n, h, w, b,
+              int(bool(need_ssim)), int(bool(need_err)), cols or 0, int(vec))
     LAUNCHES["ssim_sums"] += 1
     return out
 

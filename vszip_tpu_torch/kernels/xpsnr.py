@@ -37,7 +37,6 @@ the TPU has no 64-bit lanes; they have no counterpart here.
 from __future__ import annotations
 
 import ctypes
-from functools import lru_cache
 
 import torch
 
@@ -50,11 +49,6 @@ B = 64  # luma block size of B11
 LANE_BYTES = 8  # B12: a lane's columns of one row, one 8-byte load
 
 _I32, _I64 = torch.int32, torch.int64
-
-
-def reset_launches() -> None:
-    for k in LAUNCHES:
-        LAUNCHES[k] = 0
 
 
 # ---------------------------------------------------------------------------
@@ -134,18 +128,13 @@ def chroma_sse_uv_ref(org_u: torch.Tensor, rec_u: torch.Tensor, org_v: torch.Ten
 
 
 # ---------------------------------------------------------------------------
-# bind (the library is built by ``_build`` at the first launch)
+# entry points (the library is built by ``_build`` at the first launch)
 # ---------------------------------------------------------------------------
 
-@lru_cache(maxsize=1)
-def _lib() -> ctypes.CDLL:
-    lib = _build.load("xpsnr")
-    p, i = ctypes.c_void_p, ctypes.c_int
-    lib.vz_xpsnr_luma_stats.argtypes = [p, p, p, i, i, i, i, i, i, i, p]
-    lib.vz_xpsnr_chroma_sse.argtypes = [p, p, p, p, i, p, i, i, i, i, i, i, i, i, p]
-    for fn in (lib.vz_xpsnr_luma_stats, lib.vz_xpsnr_chroma_sse):
-        fn.restype = ctypes.c_int
-    return lib
+_P, _I = ctypes.c_void_p, ctypes.c_int
+_LUMA_STATS = _build.kernel("xpsnr", "vz_xpsnr_luma_stats", _P, _P, _P, *[_I] * 7)
+_CHROMA_SSE = _build.kernel("xpsnr", "vz_xpsnr_chroma_sse", _P, _P, _P, _P, _I, _P,
+                            *[_I] * 8)
 
 
 def pair_loads(w: int, elem_bytes: int, *ptrs: int) -> bool:
@@ -209,11 +198,10 @@ def luma_stats(org: torch.Tensor, rec: torch.Tensor, order: int,
     n, h, w = org.shape
     nbh, nbw = -(-h // B), -(-w // B)
     out = torch.empty((3, n, nbh, nbw), dtype=_I64, device=org.device)
-    with torch.cuda.device(org.device):
-        _build.check(_lib().vz_xpsnr_luma_stats, org.data_ptr(), rec.data_ptr(),
-                     out.data_ptr(), n, h, w, org.element_size(),
-                     int(pair_loads(w, org.element_size(), org.data_ptr(), rec.data_ptr())),
-                     order, int(bool(temporal)), _build.stream(org))
+    _LUMA_STATS(org.device, org.data_ptr(), rec.data_ptr(), out.data_ptr(), n, h, w,
+                org.element_size(),
+                int(pair_loads(w, org.element_size(), org.data_ptr(), rec.data_ptr())), order,
+                int(bool(temporal)))
     LAUNCHES["luma_stats"] += 1
     f = out.to(torch.float64)
     return f[0], f[1], f[2]
@@ -233,10 +221,8 @@ def _chroma(name: str, org: tuple, rec: tuple, by: int, bx: int) -> torch.Tensor
     elem = org[0].element_size()
     ptrs = [t.data_ptr() for pair in zip(org, rec) for t in pair]
     out = torch.empty((len(org), n, -(-h // by), -(-w // bx)), dtype=_I64, device=org[0].device)
-    with torch.cuda.device(org[0].device):
-        _build.check(_lib().vz_xpsnr_chroma_sse, *ptrs, *[0] * (4 - len(ptrs)), len(org),
-                     out.data_ptr(), n, h, w, elem, by, bx, strip_group(bx, elem),
-                     int(wide_loads(w, elem, *ptrs)), _build.stream(org[0]))
+    _CHROMA_SSE(org[0].device, *ptrs, *[0] * (4 - len(ptrs)), len(org), out.data_ptr(), n, h,
+                w, elem, by, bx, strip_group(bx, elem), int(wide_loads(w, elem, *ptrs)))
     LAUNCHES["chroma_sse"] += 1
     return out.to(torch.float64)
 

@@ -10,30 +10,16 @@ parameter set.
 from __future__ import annotations
 
 import ctypes
-from functools import lru_cache
 
 import numpy as np
 
 from .. import _build
 
-
-@lru_cache(maxsize=1)
-def _lib() -> ctypes.CDLL:
-    lib = _build.load("deband_rng")
-    fn = lib.vszip_deband_precompute
-    fn.restype = None
-    i32 = ctypes.c_int32
-    fn.argtypes = (
-        [i32] * 10
-        + [ctypes.c_double] * 2
-        + [i32] * 6
-        + [ctypes.c_float] * 2
-        + [ctypes.POINTER(ctypes.c_int32)] * 8
-        + [ctypes.POINTER(ctypes.c_int16)] * 2
-        + [ctypes.POINTER(ctypes.c_float)] * 2
-        + [ctypes.POINTER(ctypes.c_uint32)]
-    )
-    return lib
+_PRECOMPUTE = _build.entry(
+    "deband_rng", "vszip_deband_precompute", *[ctypes.c_int32] * 10, *[ctypes.c_double] * 2,
+    *[ctypes.c_int32] * 6, *[ctypes.c_float] * 2, *[ctypes.POINTER(ctypes.c_int32)] * 8,
+    *[ctypes.POINTER(ctypes.c_int16)] * 2, *[ctypes.POINTER(ctypes.c_float)] * 2,
+    ctypes.POINTER(ctypes.c_uint32), restype=None)
 
 
 def _ptr(arr, ctype):
@@ -47,7 +33,6 @@ def deband_precompute(w: int, h: int, num_frames: int, seed: int,
                       add_grain_y: bool, add_grain_c: bool,
                       grain_y, grain_c) -> dict:
     """Returns ref (dy, dx) planes, grain buffers, and grain offsets."""
-    lib = _lib()
     cw, ch = w >> ssw, h >> ssh
     # The native loop visits ceil(w / 2^ssw) chroma columns per row: one
     # more than cw when a subsampled dimension is odd.  Room for that keeps
@@ -65,7 +50,7 @@ def deband_precompute(w: int, h: int, num_frames: int, seed: int,
     gcf = np.zeros(total if (add_grain_c and is_float) else 1, np.float32)
     offs = np.zeros(max(num_frames, 1), np.uint32)
 
-    lib.vszip_deband_precompute(
+    _PRECOMPUTE(
         w, h, num_frames, np.int32(np.uint32(seed & 0xFFFFFFFF)).item()
         if seed < 0 or seed > 2**31 - 1 else seed,
         sample_mode, range_, ssw, ssh, algo_ref, algo_grain,

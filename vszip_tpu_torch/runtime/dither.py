@@ -11,23 +11,14 @@ the plain version the tests hold the library against.
 from __future__ import annotations
 
 import ctypes
-from functools import lru_cache
 
 import numpy as np
 
 from .. import _build
 
-
-@lru_cache(maxsize=1)
-def _lib() -> ctypes.CDLL:
-    lib = _build.load("dither")
-    fn = lib.vszip_error_diffusion_u16
-    fn.restype = None
-    fn.argtypes = [
-        ctypes.POINTER(ctypes.c_uint16), ctypes.POINTER(ctypes.c_uint16),
-        ctypes.c_int32, ctypes.c_int32, ctypes.c_float, ctypes.c_int32,
-    ]
-    return lib
+_DEMOTE = _build.entry("dither", "vszip_error_diffusion_u16", ctypes.POINTER(ctypes.c_uint16),
+                       ctypes.POINTER(ctypes.c_uint16), ctypes.c_int32, ctypes.c_int32,
+                       ctypes.c_float, ctypes.c_int32, restype=None)
 
 
 def _error_diffusion_py(plane: np.ndarray, scale: float, peak: int) -> np.ndarray:
@@ -62,7 +53,7 @@ def error_diffusion_demote(plane: np.ndarray, scale: float, peak: int) -> np.nda
     plane = np.ascontiguousarray(plane, np.uint16)
     h, w = plane.shape
     out = np.empty((h, w), np.uint16)
-    _lib().vszip_error_diffusion_u16(
+    _DEMOTE(
         plane.ctypes.data_as(ctypes.POINTER(ctypes.c_uint16)),
         out.ctypes.data_as(ctypes.POINTER(ctypes.c_uint16)),
         w, h, ctypes.c_float(scale), peak,

@@ -11,23 +11,14 @@ library against.
 from __future__ import annotations
 
 import ctypes
-from functools import lru_cache
 
 import numpy as np
 
 from .. import _build
 
-
-@lru_cache(maxsize=1)
-def _lib() -> ctypes.CDLL:
-    lib = _build.load("png_unfilter")
-    fn = lib.vszip_png_unfilter
-    fn.restype = ctypes.c_int32
-    fn.argtypes = [
-        ctypes.POINTER(ctypes.c_uint8), ctypes.c_int32, ctypes.c_int32,
-        ctypes.c_int32, ctypes.POINTER(ctypes.c_uint8),
-    ]
-    return lib
+_UNFILTER = _build.entry("png_unfilter", "vszip_png_unfilter", ctypes.POINTER(ctypes.c_uint8),
+                         ctypes.c_int32, ctypes.c_int32, ctypes.c_int32,
+                         ctypes.POINTER(ctypes.c_uint8), restype=ctypes.c_int32)
 
 
 def unfilter(raw: bytes, h: int, stride: int, bpp: int) -> np.ndarray:
@@ -35,7 +26,7 @@ def unfilter(raw: bytes, h: int, stride: int, bpp: int) -> np.ndarray:
     byte and `stride` filtered bytes; `bpp` bytes per complete pixel)."""
     src = np.frombuffer(raw, np.uint8, h * (1 + stride))
     out = np.empty((h, stride), np.uint8)
-    rc = _lib().vszip_png_unfilter(
+    rc = _UNFILTER(
         src.ctypes.data_as(ctypes.POINTER(ctypes.c_uint8)),
         np.int32(h), np.int32(stride), np.int32(bpp),
         out.ctypes.data_as(ctypes.POINTER(ctypes.c_uint8)),

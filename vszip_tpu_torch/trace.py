@@ -34,8 +34,9 @@ A span records only while someone looks:
 ``counters()`` is a read-only view of the kernel wrappers' launch counters
 by kernel name: the modules' own ``LAUNCHES`` dicts, and BoxBlur's
 ``VARIANTS`` (the kernel variant each launch took: ``v_chip`` or
-``v_fixed``, ``h_fixed_shared`` or ``h_fixed_scratch``), which each kernel
-module registers here (``reset_launches()`` resets them in place).
+``v_fixed``; ``h_fixed_warp``, ``h_fixed_shared`` or ``h_fixed_scratch``),
+which each kernel module registers here.  ``reset_launches()`` zeroes every
+registered dict in place.
 """
 
 from __future__ import annotations
@@ -160,6 +161,13 @@ _COUNTERS = Counters()
 
 def counters() -> Counters:
     return _COUNTERS
+
+
+def reset_launches() -> None:
+    """Zero every registered counter in place."""
+    for d in _launches:
+        for k in d:
+            d[k] = 0
 
 
 def register_launches(launches: dict) -> dict:
