@@ -42,6 +42,7 @@ import pytest
 import torch
 
 import vszip_tpu_torch as vt
+from portbench.reference import boxblur as boxblur_ref
 from portbench.reference import boxblur_rt
 from portbench.traffic import frames as bench_frames
 from vszip_tpu_torch import trace
@@ -230,6 +231,137 @@ def test_ct_blur_int_counts_one_launch_a_call(cuda, r):
                            "rt_blur_v": 0}
 
 
+# B1 in one launch (ct_blur_kernel) where ct_blur_fused_shape takes the
+# plane (r <= 22, the register pass's row, a 16-byte chunk a thread, the
+# ring and row buffers in a block's shared memory), else its two stages;
+# each call counts the variant it took
+def _ct_blur_matches_plain(x, r):
+    trace.reset_launches()
+    got = kb.ct_blur_int(x, r)
+    fused = kb.ct_blur_fused_shape(x.shape[2], r, x.element_size()) is not None
+    assert kb.VARIANTS["ct_fused"] == int(fused) and kb.VARIANTS["ct_two_stage"] == int(not fused)
+    assert kb.VARIANTS["h_fixed_warp"] + kb.VARIANTS["h_fixed_shared"] == int(not fused)
+    return _same(got, kb.ct_blur_int_ref(x, r)), fused
+
+
+@pytest.mark.parametrize("dtype", [torch.uint8, torch.uint16], ids=str)
+@pytest.mark.parametrize("r", range(1, 23))
+def test_ct_blur_fused_matches_plain_at_every_radius(cuda, dtype, r):
+    """1080p uint16 rows past r 13 take two stages: the ring and the row
+    buffers would pass a block's shared memory."""
+    for n, h, w in ((3, 2 * r + 1, 200), (2, 1080, 1920), (5, 97, 960)):
+        x = _rand((n, h, w), dtype, cuda, seed=r * 7 + h)
+        same, fused = _ct_blur_matches_plain(x, r)
+        assert same and fused == (w < 1920 or r <= 13 or dtype == torch.uint8), (n, h, w)
+
+
+def _widest_fused(r, elem_bytes):
+    w = r
+    while kb.ct_blur_fused_shape(w + 1, r, elem_bytes) is not None:
+        w += 1
+    return w
+
+
+@pytest.mark.parametrize("dtype", [torch.uint8, torch.uint16], ids=str)
+@pytest.mark.parametrize("r", [1, 2, 13, 22])
+def test_ct_blur_fused_at_the_widths_of_its_rule(cuda, dtype, r):
+    """The widest row the rule takes and one wider (two stages), rows
+    narrower than r (two stages: the comptime quirk), widths 1-33 and odd
+    widths."""
+    widest = _widest_fused(r, dtype.itemsize)
+    for w in sorted({widest, widest + 1, *range(1, 34), 99, 257, 1001, 1919}):
+        x = _rand((2, 2 * r + 3, w), dtype, cuda, seed=w + r)
+        same, fused = _ct_blur_matches_plain(x, r)
+        assert same and fused == (r <= w <= widest), w
+
+
+@pytest.mark.parametrize("dtype", [torch.uint8, torch.uint16], ids=str)
+@pytest.mark.parametrize("r,h", [(1, 3), (1, 4), (1, 17), (1, 1080), (13, 27), (13, 28), (13, 29),
+                                 (13, 43), (13, 44), (13, 100), (13, 540), (13, 1080), (13, 1081),
+                                 (22, 45), (22, 46), (22, 300), (22, 1079)], ids=str)
+def test_ct_blur_fused_at_heights(cuda, dtype, r, h):
+    """Heights from 2r + 1; 1, 3 and 64 frames, so 1 to 5 bands a frame and
+    bands that end a group of 8 rows early."""
+    for n in (1, 3, 64):
+        x = _rand((n, h, 136), dtype, cuda, seed=h + r + n)
+        same, fused = _ct_blur_matches_plain(x, r)
+        assert same and fused, n
+
+
+@pytest.mark.parametrize("dtype", [torch.uint8, torch.uint16], ids=str)
+def test_ct_blur_fused_takes_planes_off_16_bytes(cuda, dtype):
+    """Planes one element past 16 bytes, and rows that are not a whole
+    number of 16-byte chunks: element loads and stores."""
+    for n, h, w, r in ((3, 60, 128, 13), (2, 61, 130, 7), (2, 540, 960, 13), (1, 1080, 1920, 13),
+                       (2, 45, 1001, 22)):
+        x = _offset(_rand((n, h, w), dtype, cuda, seed=w))
+        assert x.is_contiguous() and x.data_ptr() % 16
+        same, fused = _ct_blur_matches_plain(x, r)
+        assert same and fused, (h, w, r)
+        same, fused = _ct_blur_matches_plain(_rand((n, h, w + 3), dtype, cuda, seed=w), r)
+        assert same and fused, (h, w + 3, r)
+
+
+@pytest.mark.parametrize("dtype", [torch.uint8, torch.uint16], ids=str)
+@pytest.mark.parametrize("value", ["zero", "max"])
+def test_ct_blur_fused_at_the_extremes(cuda, dtype, value):
+    top = 0 if value == "zero" else torch.iinfo(dtype).max
+    for r, (n, h, w) in ((1, (2, 3, 64)), (13, (4, 1080, 1920)), (13, (4, 540, 960)),
+                         (22, (2, 1080, 1480))):
+        x = torch.full((n, h, w), top, dtype=dtype, device=cuda)
+        same, fused = _ct_blur_matches_plain(x, r)
+        assert same and fused, r
+
+
+@pytest.mark.parametrize("case", ["ring", "rowbuf", "rowbuf16", "bands", "slots", "chunks",
+                                  "radius", "wide"])
+def test_ct_blur_refuses_shapes_that_do_not_hold_the_planes(cuda, case):
+    """vz_ct_blur checks the shape it is given (ct_fused_holds): the rule's
+    shape for 2 frames of 64 x 200 uint16 at r 13 in 2 bands runs and equals
+    the plain version; a ring a row short, row buffers too short or off 16
+    cells, bands under r + 1 rows, another run's slots, more chunks than the
+    run has, 2r >= h, or a row past 2 * 128 chunks each raise."""
+    h, w, r = 64, 200, 13
+    slots, chunks, ring, rowbuf, _ = kb.ct_blur_fused_shape(w, r, 2)
+    good = dict(w=w, r=r, bands=2, slots=slots, chunks=chunks, ring=ring, rowbuf=rowbuf)
+    bad = {**good, **{"ring": {"ring": ring - 1}, "rowbuf": {"rowbuf": rowbuf - 16},
+                      "rowbuf16": {"rowbuf": rowbuf + 8}, "bands": {"bands": h // (r + 1) + 1},
+                      "slots": {"slots": 32}, "chunks": {"chunks": 4},
+                      "radius": {"r": 32}, "wide": {"w": 2056}}[case]}
+
+    def launch(a):
+        x = _rand((2, h, a["w"]), torch.uint16, cuda, seed=5)
+        out = torch.zeros_like(x)
+        kb._CT_BLUR(x.device, x.data_ptr(), out.data_ptr(), 2, 2, h, a["w"], a["r"], a["bands"],
+                    a["slots"], a["chunks"], a["ring"], a["rowbuf"], kb.ct_blur_multiplier(a["r"]))
+        return x, out
+    x, out = launch(good)
+    assert _same(out, kb.ct_blur_int_ref(x, r))
+    with pytest.raises(RuntimeError, match="^vszip_tpu_torch: vz_ct_blur failed with CUDA "
+                       "error 1$"):
+        launch(bad)
+
+
+def test_boxblur_1080p_matches_the_benchmark_reference_in_one_launch_a_plane(cuda):
+    """The benchmark's r 13 configuration, 8 frames of its seeded 1080p
+    YUV420P16 pictures, through the op: bit for bit the comptime-path
+    reference (``portbench/reference/boxblur.py``), every plane in one
+    ``ct_blur_kernel`` launch."""
+    root = Path(__file__).resolve().parents[1]
+    cfg = json.loads((root / "portbench/configs/boxblur_r13_yuv420p16_1080p.json").read_text())
+    planes = bench_frames.make_planes(2**31 + 25, 8, [tuple(s) for s in cfg["planes"]],
+                                      cfg["bits"], cuda)
+    clip = vt.Clip.from_planes(planes, vt.get_format(cfg["format"]))
+    trace.reset_launches()
+    got = vt.boxblur(clip, **cfg["args"])
+    torch.cuda.synchronize()
+    assert {k: n for k, n in kb.LAUNCHES.items() if n} == {"ct_blur_int": 3}
+    assert {k: n for k, n in kb.VARIANTS.items() if n} == {"ct_fused": 3}
+    want = boxblur_ref.run(planes, cfg)
+    for g, w in zip(got.planes, want):
+        assert g.is_cuda and _same(g, w)
+
+
 def test_axis_radius_limits_are_per_axis(cuda):
     # a wide, short plane: the H window fits, the V window would not
     x = _rand((1, 9, 200), torch.uint16, cuda)
@@ -285,8 +417,8 @@ def test_boxblur_5pass_1080p_matches_the_benchmark_reference_through_v_chip_and_
     got = vt.boxblur(clip, **cfg["args"])
     torch.cuda.synchronize()
     assert {k: n for k, n in kb.LAUNCHES.items() if n} == {"rt_blur_h": 3, "rt_blur_v_multi": 3}
-    assert kb.VARIANTS == {"v_chip": 3, "v_fixed": 0, "h_fixed_warp": 3, "h_fixed_shared": 0,
-                           "h_fixed_scratch": 0}
+    assert kb.VARIANTS == {"ct_fused": 0, "ct_two_stage": 0, "v_chip": 3, "v_fixed": 0,
+                           "h_fixed_warp": 3, "h_fixed_shared": 0, "h_fixed_scratch": 0}
     want = boxblur_rt.run(planes, cfg)
     for g, w in zip(got.planes, want):
         assert g.is_cuda and _same(g, w)
@@ -295,7 +427,7 @@ def test_boxblur_5pass_1080p_matches_the_benchmark_reference_through_v_chip_and_
 def test_a_profiled_boxblur_call_shows_its_ranges_and_no_extra_device_work(cuda):
     """Under ``torch.profiler`` a BoxBlur r13 call on 1080p YUV420P16 shows the
     program's range by name on the host's side and runs the kernels it runs
-    without them (B1's two a plane): no ``vszip.`` range is device work, and
+    without them (B1's one a plane): no ``vszip.`` range is device work, and
     every kernel starts after the ``vszip.op.boxblur`` range opens."""
     rng = np.random.default_rng(9)
     fmt = vt.get_format("YUV420P16")
@@ -319,7 +451,7 @@ def test_a_profiled_boxblur_call_shows_its_ranges_and_no_extra_device_work(cuda)
     assert {k: len(v) for k, v in ranges.items()} == {"vszip.op.boxblur": 1}
     assert not any(ev.name().startswith("vszip.") for ev in device)
     kernels = [ev for ev in device if not ev.is_user_annotation()]
-    assert kb.LAUNCHES["ct_blur_int"] == 3 and len(kernels) == 6
+    assert kb.LAUNCHES["ct_blur_int"] == 3 and kb.VARIANTS["ct_fused"] == 3 and len(kernels) == 3
     assert min(k.start_ns() for k in kernels) > ranges["vszip.op.boxblur"][0]
 
 
@@ -1145,16 +1277,20 @@ def test_h_fixed_warp_refuses_shapes_that_do_not_hold_the_row(cuda, w, r, passes
         assert int(out.count_nonzero()) == 0
 
 
-@pytest.mark.parametrize("case", ["v_chip", "ct_v_chip", "m2_tile"])
+@pytest.mark.parametrize("case", ["ct_blur", "v_chip", "ct_v_chip", "m2_tile"])
 def test_a_failing_entry_point_raises_naming_its_symbol(cuda, case):
     """An entry point that returns a CUDA error raises RuntimeError naming its
-    symbol and the code (here cudaErrorInvalidValue: more passes than v_chip
-    unrolls, a ring or tile past a block's shared memory)."""
+    symbol and the code (here cudaErrorInvalidValue: a ring one row short
+    of B1's one-launch shape, more passes than v_chip unrolls, a ring or
+    tile past a block's shared memory)."""
     x = _rand((1, 64, 64), torch.uint16, cuda, seed=3)
     out = torch.empty_like(x)
     key = torch.zeros((64, 64), dtype=torch.int32, device=cuda)
     centre = torch.empty((1, 64, 64), dtype=torch.int32, device=cuda)
     symbol, launch = {
+        "ct_blur": ("vz_ct_blur", lambda: kb._CT_BLUR(
+            x.device, x.data_ptr(), out.data_ptr(), 2, 1, 64, 64, 13, 1, 28, 1, 42, 880,
+            kb.ct_blur_multiplier(13))),
         "v_chip": ("vz_v_chip", lambda: kb._V_CHIP(
             x.device, x.data_ptr(), out.data_ptr(), 2, 1, 64, 64, 2, kb.V_CHIP_PASSES + 1)),
         "ct_v_chip": ("vz_ct_v_chip", lambda: kb._CT_V_CHIP(

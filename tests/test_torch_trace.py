@@ -274,13 +274,14 @@ def test_a_launch_counter_name_is_registered_once():
 
 
 def test_boxblur_variant_counters_are_in_the_view_and_the_cpu_path_never_counts_them():
-    """Which kernel variant each BoxBlur launch took (``v_chip`` or the column
+    """Which kernel variant each BoxBlur launch took (B1 in one launch
+    ``ct_fused`` or its two stages ``ct_two_stage``; ``v_chip`` or the column
     walk ``v_fixed``; ``h_fixed`` one warp a row in registers, or a block a
     row in shared memory or with global scratch) is a registered counter; the
     plain versions on the CPU launch nothing."""
     view = trace.counters()
-    assert set(boxblur.VARIANTS) == {"v_chip", "v_fixed", "h_fixed_warp", "h_fixed_shared",
-                                     "h_fixed_scratch"}
+    assert set(boxblur.VARIANTS) == {"ct_fused", "ct_two_stage", "v_chip", "v_fixed",
+                                     "h_fixed_warp", "h_fixed_shared", "h_fixed_scratch"}
     assert set(boxblur.VARIANTS) <= set(view)
     planes, fmt = _clip()
     c = vt.Clip.from_planes(planes, fmt, device="cpu")

@@ -48,6 +48,13 @@ exports the query, and ptxas' registers of the package's build:
   step (one input row) in issuing a group's copies, in waiting for a group
   and the warp, in the groups of 4 steps that slide with no mirror and in
   those at the edges;
+- ``ct_blur`` (B1 in one launch, ``ct_blur_kernel``) on the luma and a
+  chroma plane of 64 frames of 1080p uint16, r 13: per group of rows, the
+  horizontal half's thread 0 in waiting for the group's set of row buffers
+  and in its warp's pair of rows (the margins, the first run and W(0); the
+  runs; both rows out), and the vertical half's first thread in waiting for
+  the group's rows and for an empty set, in the vertical sums, at the
+  half's barrier and in issuing a group's copies;
 - ``m2`` (B6, ``m2_tile_kernel``) on the 3 launches of ``deband(c)`` on 64
   frames of 1080p YUV420P16 (range 15): lane 0's cycles per pair of frames
   in decoding a tile's keys, in the taps, centres and stores, in waiting
@@ -96,7 +103,8 @@ exports the query, and ptxas' registers of the package's build:
   for them and summing the rows, and per group the segmented reduction and
   store and the warp's life;
 
-For B18, B15, B3/B4, B1's vertical stage, B6, B16, B13, B14, B7, B11 and B12 it also
+For B18, B15, B3/B4, B1's vertical stage, B1 in one launch, B6, B16, B13,
+B14, B7, B11 and B12 it also
 prints the instruction mix of each instantiation and of each of its loops
 (``cuobjdump -sass`` of the
 package's build), with the counts by class (f32, integer and address,
@@ -271,6 +279,37 @@ extern "C" int vz_probe_occupancy(int r, int unused, int unused2, int* blocks, i
   return (int)cudaOccupancyMaxActiveBlocksPerMultiprocessor(blocks, k, 32, v_chip_bytes(r, 1));
 }
 """),
+    "ct_blur": ("boxblur", (
+        "H: wait for the group's set", "H: margins, first run, W(0)", "H: the runs",
+        "H: both rows out", "V: wait for the group's rows", "V: wait for an empty set",
+        "V: the vertical sums", "V: the half's barrier", "V: issue a group's copies"), (
+        ("  if (warp >= P) {\n    // ---- the vertical half ----\n",
+         "  long long cb_s[9] = {0, 0, 0, 0, 0, 0, 0, 0, 0}, cb_groups = 0, mt_a;\n", ""),
+        ("    for (int Y = y0, g = 0; Y < y1; Y += G, ++g) {\n      const int set = g & 1;\n"
+         "      landed(g + 1);  // rows up to Y + G + r are in the ring\n",
+         "    mt_a = clock64();\n", "      " + _span("cb_s[4]")),
+        ("      if (g >= 2) named_sync(kEmpty + set, 2 * kHalf);"
+         "  // group g-2 is out of the set\n", "", "      " + _span("cb_s[5]")),
+        ("      named_arrive(kFull + set, 2 * kHalf);  // the group is in the set\n",
+         "      " + _span("cb_s[6]"), ""),
+        ("      named_sync(kVertical, kHalf);          // and done with its trail rows\n", "",
+         "      " + _span("cb_s[7]")),
+        ("      copy(G);                               // into their slots\n", "",
+         "      " + _span("cb_s[8]")),
+        ("    return;\n  }\n\n  // ---- the horizontal half ----\n",
+         "    " + " ".join(_add(i, f"cb_s[{i}]", "threadIdx.x == blockDim.x / 2")
+                          for i in range(4, 9)) + "\n", ""),
+        ("  for (int Y = y0, g = 0; Y < y1; Y += G, ++g) {\n    const int set = g & 1;\n"
+         "    named_sync(kFull + set, 2 * kHalf);  // the group is in the set\n",
+         "  mt_a = clock64();\n", "    " + _span("cb_s[0]")),
+        ("#pragma unroll 1\n      for (int c = 0; c < cf.chunks && p < live; ++c, p += n) {\n",
+         "      " + _span("cb_s[1]"), ""),
+        ("      __syncwarp();\n      // both rows out", "      " + _span("cb_s[2]"), ""),
+        ("    if (g + 2 < groups) named_arrive(kEmpty + set, 2 * kHalf);  // the set is free\n",
+         "    " + _span("cb_s[3]") + "    ++cb_groups;\n", ""),
+        ("  }\n}\n\nvoid fixed_constants(",
+         "  " + " ".join(_add(i, f"cb_s[{i}]") for i in range(4)) + " "
+         + _add(SLOTS - 1, "cb_groups") + "\n", "")), ""),
     "comb_mask": ("comb_mask", (
         "load the band's rows and halo and wait", "the band's rows: comb, motion, expand, store",
         "the warp's life, per frame"), (
@@ -788,6 +827,14 @@ def ct_v_quant(probe, g, dev) -> None:
                 "per step)", lambda: kb._ct_v(x, 13), (13, 0, 0))
 
 
+def ct_blur(probe, g, dev) -> None:
+    for h, w in ((1080, 1920), (540, 960)):
+        x = torch.randint(0, 1 << 16, (64, h, w), generator=g, device=dev,
+                          dtype=torch.int32).to(torch.uint16)
+        measure("ct_blur", probe, f"ct_blur r 13, 64x{h}x{w} u16 (thread 0 of each block, "
+                "per group)", lambda: kb.ct_blur_int(x, 13))
+
+
 def recorded(module, name: str, run) -> list:
     """The arguments of every call of ``module.name`` that ``run()`` makes."""
     calls, fn = [], getattr(module, name)
@@ -1049,7 +1096,8 @@ def compress(probe, g, dev) -> None:
 
 
 RUNS = {"eedi3_line": eedi3_line, "vcheck": vcheck, "subspl": subspl,
-        "checkmate": checkmate, "v_fixed": v_fixed, "ct_v_quant": ct_v_quant, "m2": m2,
+        "checkmate": checkmate, "v_fixed": v_fixed, "ct_v_quant": ct_v_quant,
+        "ct_blur": ct_blur, "m2": m2,
         "comb_mask": comb_mask, "ssim": ssim, "compress": compress, "clahe8": clahe8,
         "luma_stats": luma_stats, "chroma_sse": chroma_sse}
 # the instantiations the bench's calls launch (B18: uint16, no ref)
@@ -1057,7 +1105,8 @@ SASS_OF = {"subspl": "subspl_kernelItLb0E", "checkmate": "checkmate_kernel",
            "v_fixed": "v_chip_kernelItLi[15]ELb1E", "comb_mask": "comb_mask_kernelILb0ELb1ELb1E",
            "ssim": "ssim_band_kernelILb1ELb1ELi[12]E",
            "compress": "compress_kernelILb(0ELb0|1ELb1)ELb1E",
-           "ct_v_quant": "ct_v_chip_kernelItLb1E", "m2": "m2_tile_kernelILb1ELb1E",
+           "ct_v_quant": "ct_v_chip_kernelItLb1E", "ct_blur": "ct_blur_kernelItLi28EE",
+           "m2": "m2_tile_kernelILb1ELb1E",
            "clahe8": "clahe8_chunk_kernelILb1ELi16E", "luma_stats": "luma_warp_kernelItLb1ELi1E",
            "chroma_sse": "chroma_strip_kernelItLb1EE"}
 # the kernel function of a table whose name is not <table>_kernel

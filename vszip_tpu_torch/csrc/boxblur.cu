@@ -1,7 +1,7 @@
 // BoxBlur integer kernels for Hopper (sm_90a), the CUDA counterparts of the
 // Pallas kernels in vszip_tpu/kernels/boxblur_pallas.py.
 //
-// Four kernels, each exact to the reference's integer arithmetic:
+// Five kernels, each exact to the reference's integer arithmetic:
 //   v_chip      runtime vertical fixed-point pass(es)      (B3 rt_blur_v_multi_pallas,
 //               on chip (up to 6 passes, rings in shared    B4 rt_blur_v_pallas)
 //               memory)
@@ -11,6 +11,8 @@
 //                                                           the H stage of B1)
 //   ct_v_chip   comptime vertical column sums, quantised,  (V stage of B1
 //               on chip (a ring in shared memory, r <= 897) ct_blur_int_pallas)
+//   ct_blur     both stages of B1 in one launch, the       (B1 ct_blur_int_pallas)
+//               intermediate rows in shared memory
 //
 // The fixed point that must survive bit for bit (ops/boxblur.py:122-139):
 //   inv  = (2^32 + r) / (2r+1),  inv2 = inv >> 16
@@ -46,6 +48,9 @@
 // summing the 2r+1 taps of each edge row: ct_v_chip slides every row, edge
 // rows too, and divides by a per-call multiply-high (see ct_v_chip_kernel).
 // The op's comptime path takes r <= 22, so the ring's limit is the only one.
+// B1's two stages each read and write the plane: where its shape fits,
+// ct_blur_kernel runs both in one launch and keeps the quantised rows in
+// shared memory, so the call reads and writes each plane once.
 //
 // Plain C interface, loaded with ctypes.  Every entry launches on the given
 // stream, does not synchronise, allocates nothing, and returns
@@ -89,6 +94,14 @@ constexpr int kStripBytes = 128;
 constexpr int kRowWarps = 4;
 constexpr int kWarpRuns[][3] = {{4, 22, 1}, {8, 13, 3}, {16, 8, 2}, {24, 4, 3},
                                 {28, 3, 3}, {32, 3, 2}, {48, 2, 2}};
+// ct_blur (B1 in one launch): warps a block, also the rows of a group (the
+// first half takes them two by two through the register pass, the second
+// half computes their vertical sums, two 16-byte chunks of columns a thread,
+// so rows take at most 32 * kFusedWarps chunks), and the groups of input
+// rows copied ahead of the group being computed.  kernels/boxblur.py
+// CT_FUSED_WARPS and CT_FUSED_AHEAD hold the same numbers.
+constexpr int kFusedWarps = 8;
+constexpr int kFusedAhead = 1;
 
 // The least blocks an SM of the run with `slots`, and the least n = 2r + 1
 // it takes (the odd number past the run before): slots below it always hold
@@ -959,6 +972,412 @@ __global__ void __launch_bounds__(32)
   }
 }
 
+// B1's shape in one launch (the wrapper's ct_blur_fused_shape and
+// ct_blur_bands): frames of h x w samples, `bands` bands of rows a frame,
+// rows of `cols` 16-byte chunks, an input ring of `ring` rows, row buffers of
+// `rowbuf` cells, and `chunks` runs a lane in the register pass.
+struct CtFused {
+  int h, w, r, bands, cols, ring, rowbuf, chunks;
+};
+
+// The mbarriers of ct_blur's copy groups (kernels/boxblur.py CT_COPY_BARS),
+// and its bulk copies of rows (the Tensor Memory Accelerator's plain
+// copies, completed on an mbarrier).
+constexpr int kCopyBars = 4;
+
+__device__ __forceinline__ unsigned smem_addr(const void* p) {
+  return (unsigned)__cvta_generic_to_shared(p);
+}
+
+__device__ __forceinline__ void mbar_init(uint64_t* bar) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], 1;\n" ::"r"(smem_addr(bar)) : "memory");
+}
+
+// the calling thread's arrival, expecting `bytes` of copies on the phase
+__device__ __forceinline__ void mbar_expect(uint64_t* bar, unsigned bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(smem_addr(bar)),
+               "r"(bytes)
+               : "memory");
+}
+
+__device__ __forceinline__ void mbar_wait(uint64_t* bar, unsigned parity) {
+  unsigned done = 0;
+  while (!done) {
+    asm volatile(
+        "{\n .reg .pred p;\n mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        " selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done)
+        : "r"(smem_addr(bar)), "r"(parity)
+        : "memory");
+  }
+}
+
+__device__ __forceinline__ void bulk_copy(void* dst, const void* src, unsigned bytes,
+                                          uint64_t* bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1], %2, [%3];\n"
+      ::"r"(smem_addr(dst)), "l"(src), "r"(bytes), "r"(smem_addr(bar))
+      : "memory");
+}
+
+// named barrier `id` of `threads` threads: wait for them, or arrive only
+__device__ __forceinline__ void named_sync(int id, int threads) {
+  asm volatile("bar.sync %0, %1;\n" ::"r"(id), "r"(threads) : "memory");
+}
+
+__device__ __forceinline__ void named_arrive(int id, int threads) {
+  asm volatile("bar.arrive %0, %1;\n" ::"r"(id), "r"(threads) : "memory");
+}
+
+// B1 in one launch: ct_v_chip's quantised vertical sums and one pass of
+// h_fixed's register design, the intermediate plane never in device memory.
+// Block b of a frame takes its band of output rows y0 .. y1-1 (b * h / bands
+// onwards) at full width, in groups of kFusedWarps rows.  Its warps split
+// into two pipelined halves that meet at two sets of row buffers, so the
+// vertical sums of one group run beside the horizontal pass of the one
+// before (each phase alone is bound by its latencies, not by the SM):
+// - Copies: the band's input rows y0-r .. y1-1+r (clamped to the plane)
+//   enter a ring of `ring` rows in copy groups (the rows that sum W(y0),
+//   then kFusedWarps rows a group), as one or two bulk copies a group (two
+//   where it wraps round the ring) completed on the group's mbarrier (where
+//   rows are not on 16 bytes, each vertical thread loads its own chunks by
+//   elements instead).  The ring holds 2r + 1 rows and kFusedAhead + 1
+//   groups: a group's copies go out as soon as the vertical half is done
+//   with the trail rows they overwrite, and land kFusedAhead + 1 groups
+//   later.
+// - Vertical half (the last kFusedWarps / 2 warps): thread t owns the
+//   16-byte chunks t and t + 32 * kFusedWarps / 2 of every row and slides
+//   their column sums down the band as ct_v_chip does (the hybrid mirror's
+//   slide; W(y0) summed from rows y0-r .. y0+r, or under the mirror from
+//   rows 0 .. r in the top band).  It writes a group's quantised rows two by
+//   two into a set of row buffers, a row buffer holding a pair of rows
+//   interleaved: cell x is (sample x of the first row, sample x of the
+//   second), a 32-bit word for uint16.
+// - Horizontal half (the first kFusedWarps / 2 warps): warp p takes row
+//   buffer p of the set, its pair of rows, through h_fixed_kernel's register
+//   pass for one pass (passes = 1: l0 = 0, a = r), a cell a register, the
+//   two rows' sums slid side by side, and writes both rows out by 16-byte
+//   stores.  A cell is one load and one store, and lanes chunks * n cells
+//   apart meet no bank conflict in 32-bit cells, where they do in 16-bit
+//   samples.  Runs that start past the row's right margin hold nothing the
+//   row needs: they are neither loaded nor stored, so a row buffer holds
+//   the row and its margins, not every lane's runs.
+// The halves hand the sets over by named barriers: the vertical half
+// arrives at a set's full barrier, the horizontal half at its empty one.
+// The horizontal pass loops over a lane's runs rather than unrolling them
+// all: a lane holds the run it slides and the next (its leads, loaded
+// before the slide's stores reach it), so its straight-line code stays in
+// the instruction cache (fully unrolled, the pass ran at about a third of an
+// instruction a cycle), and the kernel takes any count of runs a lane.
+// Device memory: the plane read once (a band that does not start at row 0
+// also reads the r rows above it, one that does not end at the bottom the r
+// below) and written once.
+template <typename T, int kSlots>
+__global__ void __launch_bounds__(kFusedWarps * 32, 1)
+    ct_blur_kernel(const T* __restrict__ in, T* __restrict__ out, CtFused cf, bool vec,
+                   long long inv, uint32_t inv2, uint32_t m) {
+  using Wd = Word<T>;
+  // a cell: the pair of samples of the rows of a row buffer
+  using Cell = typename std::conditional<sizeof(T) == 2, uint32_t, uint16_t>::type;
+  constexpr unsigned kAll = 0xffffffffu;
+  constexpr int K = Wd::K, E = 16 / sizeof(T);  // samples a word, a chunk
+  constexpr int B = 8 * sizeof(T), G = kFusedWarps, P = G / 2;  // rows, pairs a group
+  constexpr int kHalf = P * 32;                 // threads a half
+  constexpr uint32_t kMask = (1u << B) - 1;
+  // both rows' outputs (bits 16.. of each sum) as a cell
+  constexpr uint32_t kPair = sizeof(T) == 2 ? 0x7632 : 0x0062;
+  constexpr int kLive = warp_run_live(kSlots);  // slots 0 .. kLive-1 hold samples
+  // named barriers: a set's full (1, 2) and empty (3, 4) ones, the vertical half's (5)
+  constexpr int kFull = 1, kEmpty = 3, kVertical = 5;
+  extern __shared__ uint4 fused[];
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int h = cf.h, w = cf.w, r = cf.r, n = 2 * r + 1, cols = cf.cols, R = cf.ring;
+  uint4* const ring = fused;  // R rows of cols chunks
+  Cell* const bufs = reinterpret_cast<Cell*>(fused + (size_t)R * cols);  // 2 sets of P
+  uint64_t* const bars = reinterpret_cast<uint64_t*>(bufs + (size_t)2 * P * cf.rowbuf);
+  const int f = blockIdx.x / cf.bands, band = blockIdx.x - f * cf.bands;
+  const int y0 = (int)((long long)band * h / cf.bands);
+  const int y1 = (int)((long long)(band + 1) * h / cf.bands);
+  const int groups = (y1 - y0 + G - 1) / G;
+  const int padl = (r + 15) & ~15;          // a row buffer's sample 0, on 16 cells
+  T* const dst = out + (size_t)f * h * w;
+
+  if (vec && tid == kHalf) {
+    for (int i = 0; i < kCopyBars; ++i) mbar_init(bars + i);
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  if (warp >= P) {
+    // ---- the vertical half ----
+    const int vt = tid - kHalf;
+    const bool top = y0 == 0;
+    const int s0 = top ? 0 : y0 - r;          // the band's first input row (ring slot 0)
+    const int s1 = min(y1 - 1 + r, h - 1);    // and its last
+    const int wu = y0 + r + 1 - s0;           // rows that sum W(y0)
+    const T* const src = in + (size_t)f * h * w;
+    auto sample = [](const uint4& v, int e) {
+      return Wd::at(reinterpret_cast<const uint32_t*>(&v)[e / K], e % K);
+    };
+    // the next copy group, the next input row to copy and its ring slot
+    int cgroup = 0, crow = s0, cslot = 0;
+    auto copy = [&](int rows) {
+      const int valid = max(0, min(rows, s1 + 1 - crow));
+      if (vec) {
+        if (vt == 0) {
+          uint64_t* const bar = bars + cgroup % kCopyBars;
+          const unsigned bytes = (unsigned)cols * 16;
+          const int first = min(valid, R - cslot);  // rows before the ring wraps
+          mbar_expect(bar, (unsigned)valid * bytes);
+          const T* const s = src + (size_t)crow * w;
+          if (first > 0) bulk_copy(ring + (size_t)cslot * cols, s, first * bytes, bar);
+          if (valid > first) {
+            bulk_copy(ring, s + (size_t)first * w, (valid - first) * bytes, bar);
+          }
+        }
+      } else {
+        for (int c = vt; c < cols; c += kHalf) {
+#pragma unroll 1
+          for (int i = 0, slot = cslot; i < valid; ++i, slot = slot + 1 == R ? 0 : slot + 1) {
+            const T* s = src + (size_t)(crow + i) * w + c * E;
+            uint32_t v[4] = {0, 0, 0, 0};
+#pragma unroll
+            for (int e = 0; e < E; ++e) {
+              if (c * E + e < w) v[e / K] |= (uint32_t)s[e] << (B * (e % K));
+            }
+            ring[(size_t)slot * cols + c] = make_uint4(v[0], v[1], v[2], v[3]);
+          }
+        }
+      }
+      ++cgroup;
+      crow += rows;
+      cslot = (cslot + rows) % R;
+    };
+    // copy group k is in the ring
+    auto landed = [&](int k) {
+      if (vec) mbar_wait(bars + k % kCopyBars, (unsigned)(k / kCopyBars) & 1u);
+    };
+
+    // chunk j of this thread: vt + j * kHalf; its column sums wx[j]
+    uint32_t wx[2][E];
+#pragma unroll
+    for (int j = 0; j < 2; ++j) {
+#pragma unroll
+      for (int e = 0; e < E; ++e) wx[j][e] = 0;
+    }
+    copy(wu);
+    for (int g = 0; g <= kFusedAhead; ++g) copy(G);
+    landed(0);
+#pragma unroll
+    for (int j = 0; j < 2; ++j) {
+      const int c = vt + j * kHalf;
+      if (c < cols) {
+#pragma unroll 1
+        for (int s = 0; s < wu; ++s) {
+          const uint4 v = ring[(size_t)s * cols + c];
+          const uint32_t times = top && s > 0 ? 2u : 1u;
+#pragma unroll
+          for (int e = 0; e < E; ++e) wx[j][e] += times * sample(v, e);
+        }
+      }
+    }
+    // ring slots of the lead (y+r+1) and trail (y-r) rows of output row y
+    int ls = wu, ts = top ? R - r : 0;
+    // output row y of chunk j into its quantised samples o, then W(y+1) from
+    // its lead and trail rows
+    auto vrow = [&](uint32_t* o, uint32_t* sums, const uint4& lead, const uint4& trail) {
+#pragma unroll
+      for (int e = 0; e < E; ++e) {
+        o[e] = __umulhi(2u * sums[e] + (uint32_t)n, m);
+        sums[e] += sample(lead, e) - sample(trail, e);
+      }
+    };
+    // rows 2i, 2i+1 of chunk c into row buffer i of set `set`
+    auto vpair = [&](int set, int i, int c, const uint32_t* oa, const uint32_t* ob) {
+      uint32_t v[8];  // E cells (32 bytes) as words
+#pragma unroll
+      for (int k = 0; k < 8; ++k) {
+        v[k] = sizeof(T) == 2 ? oa[k] | ob[k] << 16
+                              : oa[2 * k] | ob[2 * k] << 8 | oa[2 * k + 1] << 16 |
+                                    ob[2 * k + 1] << 24;
+      }
+      uint4* const d =
+          reinterpret_cast<uint4*>(bufs + (size_t)(set * P + i) * cf.rowbuf + padl + c * E);
+      d[0] = make_uint4(v[0], v[1], v[2], v[3]);
+      d[1] = make_uint4(v[4], v[5], v[6], v[7]);
+    };
+
+    for (int Y = y0, g = 0; Y < y1; Y += G, ++g) {
+      const int set = g & 1;
+      landed(g + 1);  // rows up to Y + G + r are in the ring
+      if (g >= 2) named_sync(kEmpty + set, 2 * kHalf);  // group g-2 is out of the set
+      if (Y >= r && Y + G + r <= h - 1) {
+        // no row of the group mirrors: a chunk's leads and trails first
+#pragma unroll 1
+        for (int j = 0; j < 2; ++j) {
+          const int c = vt + j * kHalf;
+          if (c >= cols) break;
+          uint4 lead[G], trail[G];
+#pragma unroll
+          for (int i = 0; i < G; ++i) {
+            const int l = ls + i < R ? ls + i : ls + i - R, t = ts + i < R ? ts + i : ts + i - R;
+            lead[i] = ring[(size_t)l * cols + c];
+            trail[i] = ring[(size_t)t * cols + c];
+          }
+#pragma unroll
+          for (int i = 0; i < G; i += 2) {
+            uint32_t oa[E], ob[E];
+            vrow(oa, wx[j], lead[i], trail[i]);
+            vrow(ob, wx[j], lead[i + 1], trail[i + 1]);
+            vpair(set, i / 2, c, oa, ob);
+          }
+        }
+        ls = ls + G < R ? ls + G : ls + G - R;
+        ts = ts + G < R ? ts + G : ts + G - R;
+      } else {
+        // rows past y1 take garbage, which no row before them reads
+#pragma unroll 1
+        for (int i = 0; i < G; i += 2) {
+          int l[2], t[2];
+#pragma unroll
+          for (int k = 0; k < 2; ++k) {
+            const int y = Y + i + k;
+            // past the bottom the lead is row y; above the top the trail is row r-y
+            l[k] = y + r + 1 <= h - 1 ? ls : wrap(y - s0, R);
+            t[k] = y >= r ? ts : wrap(r - y - s0, R);
+            ls = ls + 1 == R ? 0 : ls + 1;
+            ts = ts + 1 == R ? 0 : ts + 1;
+          }
+#pragma unroll
+          for (int j = 0; j < 2; ++j) {
+            const int c = vt + j * kHalf;
+            if (c < cols) {
+              uint32_t o[2][E];
+#pragma unroll
+              for (int k = 0; k < 2; ++k) {
+                vrow(o[k], wx[j], ring[(size_t)l[k] * cols + c], ring[(size_t)t[k] * cols + c]);
+              }
+              vpair(set, i / 2, c, o[0], o[1]);
+            }
+          }
+        }
+      }
+      named_arrive(kFull + set, 2 * kHalf);  // the group is in the set
+      named_sync(kVertical, kHalf);          // and done with its trail rows
+      copy(G);                               // into their slots
+    }
+    return;
+  }
+
+  // ---- the horizontal half ----
+  // cells at buffer positions from `live` on start no run the row needs
+  const int live = padl + w + r;
+  for (int Y = y0, g = 0; Y < y1; Y += G, ++g) {
+    const int set = g & 1;
+    named_sync(kFull + set, 2 * kHalf);  // the group is in the set
+    const int ya = Y + 2 * warp;         // the pair's rows ya, ya + 1
+    if (ya < y1) {
+      Cell* const b = bufs + (size_t)(set * P + warp) * cf.rowbuf;
+      // the margins: the duplicate-edge mirror (r <= w)
+      for (int j = lane; j < 2 * r; j += 32) {
+        const int u = j < r ? -1 - j : w + j - r;
+        b[padl + u] = b[padl + (u < 0 ? -1 - u : 2 * w - 1 - u)];
+      }
+      __syncwarp();
+      // the lane's runs from buffer position p: the one it slides (its two
+      // rows' samples ca, cb; runs of more than 32 slots as cells, ca, for
+      // registers) and the next (its leads, nx); the last run's leads are
+      // the next lane's first run (ends)
+      constexpr bool kApart = kSlots <= 32;
+      int p = lane * cf.chunks * n - r + padl;
+      uint32_t ca[kSlots], cb[kApart ? kSlots : 1], nx[kSlots], ends[kSlots];
+      // h_fixed's even pass for both rows: the first run's sums start the
+      // slides, lane 0's are W(0)
+      uint32_t wa = 0, wb = 0;
+#pragma unroll
+      for (int i = 0; i < kSlots; ++i) {
+        const uint32_t v = p < live && (i < kLive || i < n) ? (uint32_t)b[p + i] : 0u;
+        ca[i] = kApart ? v & kMask : v;
+        if (kApart) cb[kApart ? i : 0] = v >> B;
+        wa += v & kMask;
+        wb += v >> B;
+        ends[i] = __shfl_down_sync(kAll, v, 1);
+      }
+      const uint32_t w0a = __shfl_sync(kAll, wa, 0), w0b = __shfl_sync(kAll, wb, 0);
+      const uint32_t k0a = (uint32_t)(fixed_c0(w0a, inv) - (long long)inv2 * w0a);
+      const uint32_t k0b = (uint32_t)(fixed_c0(w0b, inv) - (long long)inv2 * w0b);
+#pragma unroll 1
+      for (int c = 0; c < cf.chunks && p < live; ++c, p += n) {
+        if (c + 1 < cf.chunks) {
+          const bool next = p + n < live;
+#pragma unroll
+          for (int i = 0; i < kSlots; ++i) {
+            nx[i] = next && (i < kLive || i < n) ? (uint32_t)b[p + n + i] : 0u;
+          }
+        } else {
+#pragma unroll
+          for (int i = 0; i < kSlots; ++i) nx[i] = ends[i];
+        }
+        // one pass leaves output x at the cell of input x - r
+#pragma unroll
+        for (int i = 0; i < kSlots; ++i) {
+          const uint32_t la = nx[i] & kMask, lb = nx[i] >> B;
+          const uint32_t ta = kApart ? ca[i] : ca[i] & kMask;
+          const uint32_t tb = kApart ? cb[kApart ? i : 0] : ca[i] >> B;
+          const uint32_t o = __byte_perm(k0a + inv2 * wa, k0b + inv2 * wb, kPair);
+          wa += la - ta;
+          wb += lb - tb;
+          if (i < kLive || i < n) b[p + r + i] = (Cell)o;
+          ca[i] = kApart ? la : nx[i];
+          if (kApart) cb[kApart ? i : 0] = lb;
+        }
+      }
+      __syncwarp();
+      // both rows out: E cells (32 bytes) a step, split into the rows, all
+      // of a lane's loads first
+      const bool both = ya + 1 < y1;
+      T* const ra = dst + (size_t)ya * w;
+      T* const rb = ra + w;
+      if (vec) {
+        constexpr int kSteps = G;  // at most 32 * G chunks a row
+        const uint4* s = reinterpret_cast<const uint4*>(b + padl);
+        uint4 q[kSteps][2];
+#pragma unroll
+        for (int it = 0; it < kSteps; ++it) {
+          const int k = lane + 32 * it;
+          if (k < w / E) {
+            q[it][0] = s[2 * k];
+            q[it][1] = s[2 * k + 1];
+          }
+        }
+#pragma unroll
+        for (int it = 0; it < kSteps; ++it) {
+          const int k = lane + 32 * it;
+          if (k < w / E) {
+            const uint32_t c[8] = {q[it][0].x, q[it][0].y, q[it][0].z, q[it][0].w,
+                                   q[it][1].x, q[it][1].y, q[it][1].z, q[it][1].w};
+            uint32_t va[4], vb[4];
+#pragma unroll
+            for (int i = 0; i < 4; ++i) {
+              va[i] = __byte_perm(c[2 * i], c[2 * i + 1], sizeof(T) == 2 ? 0x5410 : 0x6420);
+              vb[i] = __byte_perm(c[2 * i], c[2 * i + 1], sizeof(T) == 2 ? 0x7632 : 0x7531);
+            }
+            reinterpret_cast<uint4*>(ra)[k] = make_uint4(va[0], va[1], va[2], va[3]);
+            if (both) reinterpret_cast<uint4*>(rb)[k] = make_uint4(vb[0], vb[1], vb[2], vb[3]);
+          }
+        }
+      } else {
+        for (int k = lane; k < w; k += 32) {
+          const uint32_t c = b[padl + k];
+          ra[k] = (T)(c & kMask);
+          if (both) rb[k] = (T)(c >> B);
+        }
+      }
+    }
+    if (g + 2 < groups) named_arrive(kEmpty + set, 2 * kHalf);  // the set is free
+  }
+}
+
 void fixed_constants(int r, long long* inv, long long* inv2) {
   *inv = ((1LL << 32) + r) / (2 * r + 1);
   *inv2 = *inv >> 16;
@@ -1123,6 +1542,92 @@ int launch_v_chip(const void* in, void* out, int n, int h, int w, int r, int pas
   }
 }
 
+// the ring, two sets of kFusedWarps / 2 row buffers of cells of two
+// samples, the copy groups' mbarriers
+size_t ct_fused_bytes(const CtFused& cf, size_t elem) {
+  return (size_t)cf.ring * cf.cols * 16 + (size_t)2 * kFusedWarps * cf.rowbuf * elem +
+         kCopyBars * sizeof(uint64_t);
+}
+
+// Whether B1's one launch takes the planes on shape cf with the register
+// run `slots`: 2r < h; bands of at least r + 1 rows (so a band that does
+// not start at row 0 starts below row r and ends its warm-up above the
+// bottom); two chunks a vertical thread; a ring of 2r + 1 rows and the
+// groups in flight; row buffers on 16 cells that hold the chunks and what
+// the runs that start before the right margin's end load and store; the
+// shared memory of a block; and the register pass's shape for one pass
+// (h_warp_holds: l0 = 0, a = r).
+bool ct_fused_holds(int slots, const CtFused& cf, size_t elem) {
+  const int r = cf.r, n = 2 * r + 1, padl = (r + 15) & ~15, e = 16 / (int)elem;
+  if (r < 1 || cf.h <= 2 * r || cf.bands < 1 || cf.h / cf.bands < r + 1) return false;
+  if (cf.w < 1 || cf.cols != ((long long)cf.w * (long long)elem + 15) / 16 ||
+      cf.cols > kFusedWarps * 32) {
+    return false;
+  }
+  if (cf.ring < n + kFusedWarps * (kFusedAhead + 1) || cf.rowbuf % 16 != 0 ||
+      cf.rowbuf < padl + cf.w + 2 * r + n || cf.rowbuf < padl + (long long)e * cf.cols) {
+    return false;
+  }
+  if (ct_fused_bytes(cf, elem) > kMaxSmemBytes) return false;
+  return h_warp_holds(slots, HWarp{cf.w, r, cf.chunks, 0, r, 1});
+}
+
+template <typename T>
+using CtBlurKernel = void (*)(const T*, T*, CtFused, bool, long long, uint32_t, uint32_t);
+
+// ct_blur_kernel with the run of kWarpRuns whose slots are `slots`, or null.
+template <typename T>
+CtBlurKernel<T> ct_blur_of(int slots) {
+  static_assert(sizeof(kWarpRuns) / sizeof(kWarpRuns[0]) == 7, "one case a run");
+#define VZ_RUN(k) \
+  case kWarpRuns[k][0]: return ct_blur_kernel<T, kWarpRuns[k][0]>;
+  switch (slots) {
+    VZ_RUN(0) VZ_RUN(1) VZ_RUN(2) VZ_RUN(3) VZ_RUN(4) VZ_RUN(5) VZ_RUN(6)
+    default: return nullptr;
+  }
+#undef VZ_RUN
+}
+
+// One block a band of a frame: n * bands blocks.
+template <typename T>
+int launch_ct_blur(const void* in, void* out, int n, const CtFused& cf, int slots, uint32_t m,
+                   cudaStream_t s) {
+  const CtBlurKernel<T> kernel = ct_blur_of<T>(slots);
+  const long long blocks = (long long)n * cf.bands;
+  if (kernel == nullptr || !ct_fused_holds(slots, cf, sizeof(T)) || n < 0 ||
+      blocks > 0x7fffffffLL) {
+    return (int)cudaErrorInvalidValue;
+  }
+  if (blocks == 0) return 0;
+  const size_t bytes = ct_fused_bytes(cf, sizeof(T));
+  long long resident;  // sets the kernel's dynamic shared memory allowance
+  const cudaError_t e =
+      resident_blocks(reinterpret_cast<const void*>(kernel), kFusedWarps * 32, bytes, &resident);
+  if (e != cudaSuccess) return (int)e;
+  long long inv, inv2;
+  fixed_constants(cf.r, &inv, &inv2);
+  // 16-byte copies where every row starts on 16 bytes, element loads else
+  const bool vec = (uintptr_t)in % 16 == 0 && (uintptr_t)out % 16 == 0 &&
+                   (size_t)cf.w * sizeof(T) % 16 == 0;
+  kernel<<<(unsigned)blocks, kFusedWarps * 32, bytes, s>>>((const T*)in, (T*)out, cf, vec, inv,
+                                                           (uint32_t)inv2, m);
+  return (int)cudaGetLastError();
+}
+
+// The resident blocks of ct_blur_kernel with the run `slots` at `bytes` of
+// shared memory on the current device (0 for no such run).
+template <typename T>
+long long ct_blur_blocks(int slots, long long bytes) {
+  const CtBlurKernel<T> kernel = ct_blur_of<T>(slots);
+  long long blocks;
+  if (kernel == nullptr || bytes < 0 || bytes > (long long)kMaxSmemBytes ||
+      resident_blocks(reinterpret_cast<const void*>(kernel), kFusedWarps * 32, (size_t)bytes,
+                      &blocks) != cudaSuccess) {
+    return 0;
+  }
+  return blocks;
+}
+
 template <typename T>
 int launch_ct_v_chip(const void* in, void* out, int n, int h, int w, int r, uint32_t m, int sh,
                      cudaStream_t s) {
@@ -1205,6 +1710,27 @@ int vz_ct_v_chip(const void* in, void* out, int elem_bytes, int n, int h, int w,
   cudaStream_t s = (cudaStream_t)stream;
   return elem_bytes == 1 ? launch_ct_v_chip<uint8_t>(in, out, n, h, w, r, m, sh, s)
                          : launch_ct_v_chip<uint16_t>(in, out, n, h, w, r, m, sh, s);
+}
+
+// B1 in one launch on the shape the wrapper chose (kernels/boxblur.py
+// ct_blur_fused_shape: slots, chunks, ring, rowbuf; ct_blur_bands: bands),
+// (2*col + k) / (2k) as the high word of N * m (ct_blur_multiplier);
+// cudaErrorInvalidValue where that shape does not hold the planes
+// (ct_fused_holds).
+int vz_ct_blur(const void* in, void* out, int elem_bytes, int n, int h, int w, int r, int bands,
+               int slots, int chunks, int ring, int rowbuf, unsigned m, void* stream) {
+  cudaStream_t s = (cudaStream_t)stream;
+  const CtFused cf = {h, w, r, bands, (int)(((long long)w * elem_bytes + 15) / 16), ring, rowbuf,
+                      chunks};
+  return elem_bytes == 1 ? launch_ct_blur<uint8_t>(in, out, n, cf, slots, m, s)
+                         : launch_ct_blur<uint16_t>(in, out, n, cf, slots, m, s);
+}
+
+// The blocks of vz_ct_blur's kernel with the run `slots` and `bytes` of
+// shared memory resident on the current device (0: no such run or size).
+long long vz_ct_blur_blocks(int elem_bytes, int slots, long long bytes) {
+  return elem_bytes == 1 ? ct_blur_blocks<uint8_t>(slots, bytes)
+                         : ct_blur_blocks<uint16_t>(slots, bytes);
 }
 
 }  // extern "C"

@@ -9,14 +9,14 @@ tensor's device, the per-tensor analogue of the JAX package's ``_on_tpu()``:
   raises.  Nothing falls back to the plain version, and a failed build
   raises.
 
-=====================  ==============================================  ==========
+=====================  ==============================================  ============================
 wrapper                replaces (vszip_tpu/kernels/boxblur_pallas.py)   CUDA kernel
-=====================  ==============================================  ==========
-``ct_blur_int``        ``ct_blur_int_pallas`` (:279)                   ct_v_chip, h_fixed
+=====================  ==============================================  ============================
+``ct_blur_int``        ``ct_blur_int_pallas`` (:279)                   ct_blur (ct_v_chip, h_fixed)
 ``rt_blur_h``          ``rt_blur_h_pallas`` (:670)                     h_fixed
 ``rt_blur_v_multi``    ``rt_blur_v_multi_pallas`` (:580)               v_chip (v_fixed)
 ``rt_blur_v``          ``rt_blur_v_pallas`` (:432)                     v_chip (v_fixed)
-=====================  ==============================================  ==========
+=====================  ==============================================  ============================
 
 What bounds them on an H100 is device-memory bytes: a pass reads and writes
 each plane once, about 12.4 MB per 1080p YUV420P16 frame against 3.35 TB/s,
@@ -47,8 +47,15 @@ from the one before, and the quantiser ``(2*col + k) // (2k)`` as a
 multiply-high by the per-call (m, s) of ``quantizer``.  Its ring holds
 2r + 1 + ``V_CHIP_AHEAD_ROWS`` rows, ``v_chip``'s one-pass ring
 (``v_fixed_on_chip(r, 1)``: r <= 897); ``ct_blur_int`` raises past that,
-which the op's comptime path (r <= 22) never reaches.  B1 runs as two
-launches; fusing those is later work.
+which the op's comptime path (r <= 22) never reaches.  Where
+``ct_blur_fused_shape`` takes the plane (r <= 22, the register design's
+row, the ring and the row buffers in a block's shared memory: 1080p at r
+<= 13 in uint16), B1 is one launch, ``ct_blur``: a block takes a band of
+a frame's rows, half its warps slide ``ct_v_chip``'s quantised column sums
+down the band into row buffers in shared memory, the other half takes those
+rows two by two through ``h_fixed``'s register pass, so the intermediate
+plane never reaches device memory; elsewhere its two stages run, ``ct_v_chip``
+and then ``h_fixed``.
 """
 
 from __future__ import annotations
@@ -64,13 +71,16 @@ from .. import _build, trace
 # it launches its kernel(s) and nowhere else; the plain versions never count.
 LAUNCHES = trace.register_launches({"ct_blur_int": 0, "rt_blur_h": 0, "rt_blur_v_multi": 0,
                                     "rt_blur_v": 0})
-# The variant each CUDA launch of ``v_fixed`` and ``h_fixed`` took: the
-# on-chip ``v_chip`` or the column walk ``v_fixed``; ``h_fixed`` one warp a
-# row in registers (``h_fixed_warp_shape``), or a block a row with the row
-# in shared memory or in a global scratch buffer.  ``ct_blur_int``'s
-# horizontal stage counts here too; its vertical stage is ``ct_v_chip``.
-VARIANTS = trace.register_launches({"v_chip": 0, "v_fixed": 0, "h_fixed_warp": 0,
-                                    "h_fixed_shared": 0, "h_fixed_scratch": 0})
+# The variant each CUDA launch took: ``ct_blur_int`` in one launch
+# (``ct_fused``, where ``ct_blur_fused_shape`` gives a shape) or as its two
+# stages (``ct_two_stage``: ``ct_v_chip``, then ``h_fixed``, which counts
+# its own variant); ``v_fixed`` on chip (``v_chip``) or as the column walk
+# (``v_fixed``); ``h_fixed`` one warp a row in registers
+# (``h_fixed_warp_shape``), or a block a row with the row in shared memory
+# or in a global scratch buffer.
+VARIANTS = trace.register_launches({"ct_fused": 0, "ct_two_stage": 0, "v_chip": 0,
+                                    "v_fixed": 0, "h_fixed_warp": 0, "h_fixed_shared": 0,
+                                    "h_fixed_scratch": 0})
 
 # ``v_chip`` (csrc/boxblur.cu) unrolls up to V_CHIP_PASSES passes, and one
 # warp keeps passes * (2r + 1) + V_CHIP_AHEAD_ROWS rows of a 128-byte strip
@@ -127,6 +137,83 @@ def h_fixed_in_registers(w: int, radius: int, passes: int = 1) -> bool:
     return h_fixed_warp_shape(w, radius, passes) is not None
 
 
+# B1 in one launch (``ct_blur_kernel``, csrc/boxblur.cu kFusedWarps,
+# kFusedAhead and kCopyBars): a block of CT_FUSED_WARPS warps takes a band
+# of a frame's rows, CT_FUSED_WARPS rows a group; half its threads own two
+# 16-byte chunks of each row, and its ring holds 2r + 1 input rows and
+# CT_FUSED_AHEAD + 1 groups.  The op's comptime path takes r <=
+# CT_MAX_RADIUS; the bands' halo rows stay within CT_HALO_SHARE of a
+# frame's rows.
+CT_FUSED_WARPS = 8
+CT_FUSED_AHEAD = 1
+CT_COPY_BARS = 4
+CT_MAX_RADIUS = 22
+CT_HALO_SHARE = 0.1
+
+
+@lru_cache(maxsize=256)
+def ct_blur_fused_shape(w: int, radius: int, elem_bytes: int):
+    """(slots, chunks a lane, ring rows, row buffer cells, shared bytes) of
+    ``ct_blur_int`` in one launch for planes of rows of `w` samples of
+    `elem_bytes`, or None where its two stages take them: r <=
+    CT_MAX_RADIUS, the register pass takes the row for one pass
+    (``h_fixed_warp_shape``: r <= w, the row within its runs), the row is at
+    most 32 * CT_FUSED_WARPS 16-byte chunks (two a vertical thread), and
+    the ring and the row buffers fit a block's shared memory.  Two sets of
+    CT_FUSED_WARPS / 2 row buffers, a pair of rows each, start a row at
+    `padl`, r rounded up to 16 cells, and hold its margins and what the runs
+    that start before the right margin's end load and store (1080p uint16 at
+    r 13: 229,152 bytes).  The library checks that a shape it is given holds
+    the planes."""
+    if radius > CT_MAX_RADIUS:
+        return None
+    shape = h_fixed_warp_shape(w, radius, 1)
+    if shape is None:
+        return None
+    slots, _, chunks, _, _ = shape
+    cols = -(-w * elem_bytes // 16)
+    if cols > 32 * CT_FUSED_WARPS:
+        return None
+    n = 2 * radius + 1
+    padl = -(-radius // 16) * 16
+    rowbuf = -(-max(padl + w + 2 * radius + n, padl + cols * (16 // elem_bytes)) // 16) * 16
+    ring = n + CT_FUSED_WARPS * (CT_FUSED_AHEAD + 1)
+    smem = ring * cols * 16 + 2 * CT_FUSED_WARPS * rowbuf * elem_bytes + 8 * CT_COPY_BARS
+    if smem > _build.MAX_SMEM_BYTES:
+        return None
+    return slots, chunks, ring, rowbuf, smem
+
+
+def ct_blur_band_rows(h: int, radius: int, bands: int) -> list[tuple[int, int, int, int]]:
+    """(y0, y1, s0, s1) of each band of a frame of `h` rows: output rows
+    y0 .. y1-1 (b * h // bands onwards) from input rows s0 .. s1, the r
+    rows above the band and the r below it where the frame has them (the
+    top band sums W(0) from rows 0 .. r under the mirror)."""
+    out = []
+    for b in range(bands):
+        y0, y1 = b * h // bands, (b + 1) * h // bands
+        out.append((y0, y1, 0 if y0 == 0 else y0 - radius, min(y1 - 1 + radius, h - 1)))
+    return out
+
+
+@lru_cache(maxsize=256)
+def ct_blur_bands(n: int, h: int, radius: int, blocks: int) -> int:
+    """Bands a frame for `n` frames of `h` rows on a card that holds
+    `blocks` blocks at once: of the counts that keep every band at r + 1
+    rows or more and the halo rows within CT_HALO_SHARE of `h`, the one
+    with the fewest waves of blocks times input rows of the largest band
+    (the fewest bands of those that tie).  64 frames on 132 blocks: 2 bands
+    of 1080 or 540 rows, one wave of 128 blocks."""
+    most = min(h // (radius + 1), 1 + int(CT_HALO_SHARE * h) // (2 * radius))
+    best, bands = None, 1
+    for b in range(1, max(most, 1) + 1):
+        rows = max(s1 + 1 - s0 for _, _, s0, s1 in ct_blur_band_rows(h, radius, b))
+        cost = -(-n * b // blocks) * rows
+        if best is None or cost < best:
+            best, bands = cost, b
+    return bands
+
+
 def quantizer(radius: int) -> tuple[int, int]:
     """(m, s) with ``(n * m) >> s == n // (2k)``, k = 2r + 1, for every
     numerator n = 2*col + k of a uint16 (or uint8) plane's column sum, n <=
@@ -138,6 +225,17 @@ def quantizer(radius: int) -> tuple[int, int]:
     d = 2 * k
     s = (k * 131071 * (d - 1)).bit_length()
     return -(-(1 << s) // d), s
+
+
+def ct_blur_multiplier(radius: int) -> int:
+    """m with ``(n * m) >> 32 == n // (2k)``, k = 2r + 1, for every
+    numerator n = 2*col + k of a uint16 (or uint8) plane's column sum, n <=
+    N_max = k * 131071, at r <= CT_MAX_RADIUS: m = ceil(2^32 / 2k).  With
+    e = m * 2k - 2^32 < 2k, n * m / 2^32 = n / 2k + n * e / (2k * 2^32),
+    and n * e <= N_max * (2k - 1) < 2^32 while k <= 90, so the second term
+    never reaches the next multiple of 1 / 2k.  ``ct_blur_kernel`` takes the
+    high word of one 32x32 multiply."""
+    return -(-(1 << 32) // (2 * (2 * radius + 1)))
 
 
 # ---------------------------------------------------------------------------
@@ -255,6 +353,9 @@ _H_FIXED_SCRATCH_WORDS = _build.entry("boxblur", "vz_h_fixed_scratch_words", _LL
                                       restype=_LL)
 _CT_V_CHIP = _build.kernel("boxblur", "vz_ct_v_chip", _P, _P, _I, _I, _I, _I, _I,
                          ctypes.c_uint, _I)
+_CT_BLUR = _build.kernel("boxblur", "vz_ct_blur", _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I,
+                         _I, ctypes.c_uint)
+_CT_BLUR_BLOCKS = _build.entry("boxblur", "vz_ct_blur_blocks", _I, _I, _LL, restype=_LL)
 
 
 def _check(x: torch.Tensor, radius: int, axes: tuple[int, ...], passes: int = 1) -> None:
@@ -301,6 +402,27 @@ def _ct_v(x: torch.Tensor, radius: int) -> torch.Tensor:
     return out
 
 
+@lru_cache(maxsize=64)
+def _ct_blur_blocks(elem_bytes: int, slots: int, smem: int) -> int:
+    """The blocks of ``ct_blur_kernel`` (run `slots`, `smem` bytes) the card
+    holds at once."""
+    blocks = _CT_BLUR_BLOCKS(elem_bytes, slots, smem)
+    if blocks < 1:
+        raise RuntimeError(f"vszip_tpu_torch: no resident block of ct_blur at {smem} bytes")
+    return blocks
+
+
+def _ct_blur(x: torch.Tensor, radius: int, shape: tuple) -> torch.Tensor:
+    """B1 in one launch on `shape` (``ct_blur_fused_shape``)."""
+    n, h, w = x.shape
+    slots, chunks, ring, rowbuf, smem = shape
+    bands = ct_blur_bands(n, h, radius, _ct_blur_blocks(x.element_size(), slots, smem))
+    out = torch.empty_like(x)
+    _CT_BLUR(x.device, x.data_ptr(), out.data_ptr(), x.element_size(), n, h, w, radius, bands,
+             slots, chunks, ring, rowbuf, ct_blur_multiplier(radius))
+    return out
+
+
 def _h_fixed(x: torch.Tensor, radius: int, passes: int) -> torch.Tensor:
     n, h, w = x.shape
     out = torch.empty_like(x)
@@ -327,13 +449,20 @@ def _h_fixed(x: torch.Tensor, radius: int, passes: int) -> torch.Tensor:
 @trace.spanned("vszip.kernel.ct_blur_int", profiled=False)
 def ct_blur_int(x: torch.Tensor, radius: int) -> torch.Tensor:
     """Comptime integer BoxBlur, one pass each axis (B1), r <= 897 (the
-    ring of ``ct_v_chip``, on either device)."""
+    ring of ``ct_v_chip``, on either device): one launch where
+    ``ct_blur_fused_shape`` gives a shape, else its two stages."""
     if not v_fixed_on_chip(radius, 1):
         raise ValueError(f"vszip_tpu_torch: ct_blur_int takes radius <= 897, got {radius}")
     if x.device.type == "cpu":
         return ct_blur_int_ref(x, radius)
     _check(x, radius, (1,))
-    out = _h_fixed(_ct_v(x, radius), radius, 1)
+    shape = ct_blur_fused_shape(x.shape[2], radius, x.element_size())
+    if shape is not None:
+        out = _ct_blur(x, radius, shape)
+        VARIANTS["ct_fused"] += 1
+    else:
+        out = _h_fixed(_ct_v(x, radius), radius, 1)
+        VARIANTS["ct_two_stage"] += 1
     LAUNCHES["ct_blur_int"] += 1
     return out
 

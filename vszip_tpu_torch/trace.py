@@ -33,8 +33,9 @@ A span records only while someone looks:
 
 ``counters()`` is a read-only view of the kernel wrappers' launch counters
 by kernel name: the modules' own ``LAUNCHES`` dicts, and BoxBlur's
-``VARIANTS`` (the kernel variant each launch took: ``v_chip`` or
-``v_fixed``; ``h_fixed_warp``, ``h_fixed_shared`` or ``h_fixed_scratch``),
+``VARIANTS`` (the kernel variant each launch took: ``ct_fused`` or
+``ct_two_stage``; ``v_chip`` or ``v_fixed``; ``h_fixed_warp``,
+``h_fixed_shared`` or ``h_fixed_scratch``),
 which each kernel module registers here.  ``reset_launches()`` zeroes every
 registered dict in place.
 """
