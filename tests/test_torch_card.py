@@ -4,9 +4,10 @@ Checkmate, CombMask, CombMaskMT, BilateralDither, MosquitoNR, Bilateral and
 the plain filters) on the card against the port's CPU path, the streaming
 runtime against resident calls, ImageRead on the card against a CPU read,
 ``run_sharded`` and ``process_stream`` over a two-entry mesh on cuda:0
-against resident calls, the benchmark's 5-pass BoxBlur at 1080p against
-its runtime-path reference, the launch and variant counters, and the
-wrappers' input checks.  Every test here needs an NVIDIA GPU and skips
+against resident calls, the benchmark's 5-pass BoxBlur and MosquitoNR at
+1080p against their plain references (MosquitoNR's stage spans and plane
+counters with it), the launch and variant counters, and the wrappers' input
+checks.  Every test here needs an NVIDIA GPU and skips
 without one.  This file imports no JAX (the card's machine has none), so it
 runs there on its own, without tests/conftest.py:
 
@@ -44,6 +45,7 @@ import torch
 import vszip_tpu_torch as vt
 from portbench.reference import boxblur as boxblur_ref
 from portbench.reference import boxblur_rt
+from portbench.reference import mosquito_nr as mosquito_ref
 from portbench.traffic import frames as bench_frames
 from vszip_tpu_torch import trace
 from vszip_tpu_torch.kernels import bilateral as kbl
@@ -422,6 +424,54 @@ def test_boxblur_5pass_1080p_matches_the_benchmark_reference_through_v_chip_and_
     want = boxblur_rt.run(planes, cfg)
     for g, w in zip(got.planes, want):
         assert g.is_cuda and _same(g, w)
+
+
+def test_mosquito_nr_1080p_matches_the_benchmark_reference_with_its_stage_spans(cuda):
+    """The benchmark's MosquitoNR configuration, 8 frames of its seeded 1080p
+    YUV420P16 pictures, through the op: bit for bit the plain reference
+    (``portbench/reference/mosquito_nr.py``), chroma passed through; one plane
+    smoothed and restored, none mixed; both stage spans under
+    ``trace.collect()``.  Under the profiler, over three calls, the device
+    operations pair with launches inside the two stage ranges, and the two
+    stage metrics add up to a call's busy device time (at 8 frames the
+    host's launches leave gaps between the operations)."""
+    from portbench.metrics import restore_stage_ms, smooth_stage_ms
+    from portbench.trace import _records
+
+    root = Path(__file__).resolve().parents[1]
+    cfg = json.loads((root / "portbench/configs/mosquito_nr_yuv420p16_1080p.json").read_text())
+    planes = bench_frames.make_planes(2**31 + 26, 8, [tuple(s) for s in cfg["planes"]],
+                                      cfg["bits"], cuda)
+    clip = vt.Clip.from_planes(planes, vt.get_format(cfg["format"]))
+    mosquito = importlib.import_module("vszip_tpu_torch.ops.mosquito_nr")
+    trace.reset_launches()
+    with trace.collect() as t:
+        got = vt.mosquito_nr(clip, **cfg["args"])
+        torch.cuda.synchronize()
+    assert mosquito.PLANES == {"mosquito_nr_smoothed": 1, "mosquito_nr_restored": 1,
+                               "mosquito_nr_mixed": 0}
+    names = [s[0] for s in t.spans]
+    assert names.count("vszip.op.mosquito_nr.smooth") == 1
+    assert names.count("vszip.op.mosquito_nr.restore") == 1
+    want = mosquito_ref.run(planes, cfg)
+    for g, w in zip(got.planes, want):
+        assert g.is_cuda and _same(g, w)
+    assert all(torch.equal(g, x) for g, x in zip(got.planes[1:], planes[1:]))
+
+    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        with torch.profiler.record_function("portbench.traced"):
+            for _ in range(3):
+                with torch.profiler.record_function("portbench.op"):
+                    vt.mosquito_nr(clip, **cfg["args"])
+            torch.cuda.synchronize()
+    rec = {"trace": _records(prof, 3)}
+    smooth, restore = smooth_stage_ms.read(rec), restore_stage_ms.read(rec)
+    assert smooth is not None and restore is not None and smooth > restore > 0
+    busy = [sum(d["end"] - d["start"] for d in rec["trace"]["device"]
+                if s <= (d["start"] + d["end"]) / 2 <= e) for s, e in rec["trace"]["ops"]]
+    assert len(busy) == 3
+    assert smooth + restore == pytest.approx(sorted(busy)[1] * 1e-3, rel=0.01)
 
 
 def test_a_profiled_boxblur_call_shows_its_ranges_and_no_extra_device_work(cuda):

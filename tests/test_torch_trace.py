@@ -3,6 +3,7 @@ CPU: off unless someone looks, nested under ``collect()`` with parent ids and
 self times, in the profiler's trace by name and on its clock, at every op
 entry point, kernel wrapper and stage of ``process_stream``."""
 
+import importlib
 import inspect
 import types
 
@@ -14,6 +15,9 @@ import vszip_tpu_torch as vt
 from vszip_tpu_torch import trace
 from vszip_tpu_torch.kernels import (bilateral, bilateral_dither, boxblur, checkmate, clahe,
                                      comb_mask, compress, deband, eedi3, ssim, xpsnr)
+
+# the op module (the package exports the op function under the same name)
+MOSQUITO = importlib.import_module("vszip_tpu_torch.ops.mosquito_nr")
 
 KERNEL_MODULES = (bilateral, bilateral_dither, boxblur, checkmate, clahe, comb_mask, compress,
                   deband, eedi3, ssim, xpsnr)
@@ -234,16 +238,22 @@ def _registered(m):
     return [m.LAUNCHES] + ([m.VARIANTS] if m is boxblur else [])
 
 
+def _every_registered():
+    """Every registered counter dict: the kernel modules', and MosquitoNR's
+    PLANES, which its op module registers."""
+    return [d for m in KERNEL_MODULES for d in _registered(m)] + [MOSQUITO.PLANES]
+
+
 def test_counters_are_the_modules_launches():
     view = trace.counters()
     want = {}
-    for d in (d for m in KERNEL_MODULES for d in _registered(m)):
+    for d in _every_registered():
         assert not set(d) & set(want)
         want.update(d)
     assert dict(view) == want and len(view) == len(want)
     with pytest.raises(TypeError):
         view["ct_blur_int"] = 1
-    registered = [d for m in KERNEL_MODULES for d in _registered(m)]
+    registered = _every_registered()
     saved = [dict(d) for d in registered]
     try:
         before = view["ct_blur_int"]
@@ -266,7 +276,7 @@ def test_counters_are_the_modules_launches():
 def test_a_launch_counter_name_is_registered_once():
     assert trace.register_launches(boxblur.LAUNCHES) is boxblur.LAUNCHES
     assert trace.register_launches(boxblur.VARIANTS) is boxblur.VARIANTS
-    assert len(trace.counters()) == sum(len(d) for m in KERNEL_MODULES for d in _registered(m))
+    assert len(trace.counters()) == sum(len(d) for d in _every_registered())
     with pytest.raises(ValueError, match="registered twice"):
         trace.register_launches({"ct_blur_int": 0})
     with pytest.raises(ValueError, match="registered twice"):

@@ -22,6 +22,17 @@ Plain torch on either device (no kernel: the JAX package has none either).
 Integers run in int32, which is bit-identical to the reference's i16 lanes
 for every valid pixel range; floats in f32, each product and sum rounded
 on its own.  By default only luma is processed.
+
+Each processed plane opens two spans, ``vszip.op.mosquito_nr.smooth``
+(steps 1-3) and ``vszip.op.mosquito_nr.restore`` (step 4 and the output's
+rounding, clamp and cast), and counts itself in ``PLANES``:
+``mosquito_nr_smoothed``, ``mosquito_nr_restored`` (restore != 0) and
+``mosquito_nr_mixed`` (0 < restore < 128, the LL mix).
+Unlike other spans inside an op, both reach the profiler's trace
+(``profiled``), where the benchmark attributes each device operation to its
+stage: two ranges a plane cost a few microseconds of host time under the
+profiler, against a call's hundreds of launches and milliseconds of device
+time.
 """
 
 from __future__ import annotations
@@ -29,12 +40,14 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from .. import trace
 from ..core.clip import Clip
 from ..core.format import ColorFamily, SampleType
 from ..core.params import VSZipError, get_array, parse_planes, require
-from ..trace import spanned
 
 FILTER_NAME = "MosquitoNR"
+PLANES = trace.register_launches({"mosquito_nr_smoothed": 0, "mosquito_nr_restored": 0,
+                                  "mosquito_nr_mixed": 0})
 
 
 def _pad2(x: torch.Tensor) -> torch.Tensor:
@@ -185,44 +198,57 @@ def _inv_axis(a, d, axis, n, is_int):
     return out.movedim(1, axis)
 
 
-def _mosquito_plane(x, strength: int, restore: int, radius: int, bits: int, is_int: bool,
-                    chroma: bool):
-    n, h, w = x.shape
-    if is_int:
-        work = x.to(torch.int32) << 4
-        lo_clamp, hi_clamp = 0, (1 << bits) - 1
-    else:
-        work = x.to(torch.float32)
-        lo_clamp, hi_clamp = (-0.5, 0.5) if chroma else (0.0, 1.0)
+def _smooth(work, strength: int, radius: int, is_int: bool):
+    """Steps 2-3 on the work plane; the padded plane and the directions go
+    with the stage."""
+    h, w = work.shape[1:]
     p = _pad2(work)
 
     def tap(dy, dx):
         return p[:, 2 + dy:2 + dy + h, 2 + dx:2 + dx + w]
 
     dirs = _sads(tap, radius, is_int)
-    blur = _blend(tap, dirs, strength, radius, is_int)
+    return _blend(tap, dirs, strength, radius, is_int)
 
-    out = blur
-    if restore != 0:
-        va_o, _ = _fwd_axis(work, 1, is_int)
-        ll_o, _ = _fwd_axis(va_o, 2, is_int)
-        va_b, vd_b = _fwd_axis(blur, 1, is_int)
-        ll_b, hd_b = _fwd_axis(va_b, 2, is_int)
-        if restore == 128:
-            ll = ll_o
-        elif is_int:
-            ll = (restore * ll_o + (128 - restore) * ll_b + 64) >> 7
+
+def _mosquito_plane(x, strength: int, restore: int, radius: int, bits: int, is_int: bool,
+                    chroma: bool):
+    n, h, w = x.shape
+    with trace.span("vszip.op.mosquito_nr.smooth"):
+        PLANES["mosquito_nr_smoothed"] += 1
+        if is_int:
+            work = x.to(torch.int32) << 4
+            lo_clamp, hi_clamp = 0, (1 << bits) - 1
         else:
-            wo = np.float32(restore / 128.0)
-            ll = float(wo) * ll_o + float(np.float32(1.0) - wo) * ll_b
-        out = _inv_axis(_inv_axis(ll, hd_b, 2, w, is_int), vd_b, 1, h, is_int)
+            work = x.to(torch.float32)
+            lo_clamp, hi_clamp = (-0.5, 0.5) if chroma else (0.0, 1.0)
+        blur = _smooth(work, strength, radius, is_int)
 
-    if is_int:
-        return ((out + 8) >> 4).clamp(lo_clamp, hi_clamp).to(x.dtype)
-    return out.clamp(lo_clamp, hi_clamp)
+    with trace.span("vszip.op.mosquito_nr.restore"):
+        out = blur
+        if restore != 0:
+            PLANES["mosquito_nr_restored"] += 1
+            va_o, _ = _fwd_axis(work, 1, is_int)
+            ll_o, _ = _fwd_axis(va_o, 2, is_int)
+            va_b, vd_b = _fwd_axis(blur, 1, is_int)
+            ll_b, hd_b = _fwd_axis(va_b, 2, is_int)
+            if restore == 128:
+                ll = ll_o
+            else:
+                PLANES["mosquito_nr_mixed"] += 1
+                if is_int:
+                    ll = (restore * ll_o + (128 - restore) * ll_b + 64) >> 7
+                else:
+                    wo = np.float32(restore / 128.0)
+                    ll = float(wo) * ll_o + float(np.float32(1.0) - wo) * ll_b
+            out = _inv_axis(_inv_axis(ll, hd_b, 2, w, is_int), vd_b, 1, h, is_int)
+
+        if is_int:
+            return ((out + 8) >> 4).clamp(lo_clamp, hi_clamp).to(x.dtype)
+        return out.clamp(lo_clamp, hi_clamp)
 
 
-@spanned("vszip.op.mosquito_nr")
+@trace.spanned("vszip.op.mosquito_nr")
 def mosquito_nr(clip: Clip, strength=None, restore=None, radius=None, planes=None) -> Clip:
     fmt = clip.format
     ok_int = fmt.sample_type is SampleType.INTEGER and 8 <= fmt.bits_per_sample <= 16

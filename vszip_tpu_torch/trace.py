@@ -5,7 +5,9 @@ never per tap, row or frame:
 
 * every public op: ``vszip.op.<name>``; inside BoxBlur and Bilateral also
   ``vszip.op.<name>.derive`` (validation and create-time derivation) and
-  ``vszip.op.<name>.plane`` (one processed plane);
+  ``vszip.op.<name>.plane`` (one processed plane); inside MosquitoNR
+  ``vszip.op.mosquito_nr.smooth`` and ``.restore``, a processed plane's two
+  stages;
 * every hand-written kernel wrapper: ``vszip.kernel.<launch counter>`` (its
   checks, output allocation and launches; on the CPU, its plain version);
 * ``process_stream``: ``vszip.stream.source`` (the source call), ``.fill``
@@ -26,7 +28,11 @@ A span records only while someone looks:
   (``.derive``, ``.plane``, ``vszip.kernel.*``, opened with
   ``profiled=False``) do not: a range costs the host about 2 us under the
   profiler, and eight of them in each BoxBlur call left a profiled H100 up
-  to 6 points less busy than without them;
+  to 6 points less busy than without them.  MosquitoNR's two stage spans
+  are profiled all the same: a plane's two ranges sit among some 300
+  plain-torch launches and over 100 ms of device work at 1080p, and the
+  benchmark reads from the profiler's trace which stage launched each
+  device operation;
 * under ``collect()``, every span appends ``(name, id, parent id, start,
   end)`` to the collection, stamped with ``time.time_ns()``, the clock the
   profiler stamps its CPU events with: the two line up with no conversion.
@@ -36,7 +42,9 @@ by kernel name: the modules' own ``LAUNCHES`` dicts, and BoxBlur's
 ``VARIANTS`` (the kernel variant each launch took: ``ct_fused`` or
 ``ct_two_stage``; ``v_chip`` or ``v_fixed``; ``h_fixed_warp``,
 ``h_fixed_shared`` or ``h_fixed_scratch``),
-which each kernel module registers here.  ``reset_launches()`` zeroes every
+which each kernel module registers here, and MosquitoNR's ``PLANES`` (planes
+smoothed, restored, and whose LL bands were mixed), which its op module
+registers.  ``reset_launches()`` zeroes every
 registered dict in place.
 """
 
