@@ -16,7 +16,7 @@ from vszip_tpu_torch import _build
 
 MODULES = [f"vszip_tpu_torch.kernels.{m}" for m in (
     "bilateral", "bilateral_dither", "boxblur", "checkmate", "clahe", "comb_mask", "compress",
-    "deband", "eedi3", "ssim", "xpsnr")] + [f"vszip_tpu_torch.runtime.{m}" for m in (
+    "deband", "eedi3", "mosquito_nr", "ssim", "xpsnr")] + [f"vszip_tpu_torch.runtime.{m}" for m in (
         "deband_rng", "dither", "png_native")]
 for _m in MODULES:
     importlib.import_module(_m)

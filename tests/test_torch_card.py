@@ -57,6 +57,7 @@ from vszip_tpu_torch.kernels import compress as kz
 from vszip_tpu_torch.kernels import clahe as kc
 from vszip_tpu_torch.kernels import deband as kd
 from vszip_tpu_torch.kernels import eedi3 as ke
+from vszip_tpu_torch.kernels import mosquito_nr as kmn
 from vszip_tpu_torch.kernels import ssim as ks
 from vszip_tpu_torch.kernels import xpsnr as kx
 from vszip_tpu_torch.ops.clahe import _cells_8bit
@@ -430,11 +431,12 @@ def test_mosquito_nr_1080p_matches_the_benchmark_reference_with_its_stage_spans(
     """The benchmark's MosquitoNR configuration, 8 frames of its seeded 1080p
     YUV420P16 pictures, through the op: bit for bit the plain reference
     (``portbench/reference/mosquito_nr.py``), chroma passed through; one plane
-    smoothed and restored, none mixed; both stage spans under
-    ``trace.collect()``.  Under the profiler, over three calls, the device
-    operations pair with launches inside the two stage ranges, and the two
-    stage metrics add up to a call's busy device time (at 8 frames the
-    host's launches leave gaps between the operations)."""
+    smoothed (one launch of the smoothing kernel) and restored, none mixed;
+    both stage spans under ``trace.collect()``.  Under the profiler, over
+    three calls, the device operations pair with launches inside the two
+    stage ranges, and the two stage metrics add up to a call's busy device
+    time (at 8 frames the host's launches leave gaps between the
+    operations)."""
     from portbench.metrics import restore_stage_ms, smooth_stage_ms
     from portbench.trace import _records
 
@@ -450,6 +452,7 @@ def test_mosquito_nr_1080p_matches_the_benchmark_reference_with_its_stage_spans(
         torch.cuda.synchronize()
     assert mosquito.PLANES == {"mosquito_nr_smoothed": 1, "mosquito_nr_restored": 1,
                                "mosquito_nr_mixed": 0}
+    assert kmn.LAUNCHES == {"mosquito_nr_smooth": 1}
     names = [s[0] for s in t.spans]
     assert names.count("vszip.op.mosquito_nr.smooth") == 1
     assert names.count("vszip.op.mosquito_nr.restore") == 1
@@ -467,7 +470,7 @@ def test_mosquito_nr_1080p_matches_the_benchmark_reference_with_its_stage_spans(
             torch.cuda.synchronize()
     rec = {"trace": _records(prof, 3)}
     smooth, restore = smooth_stage_ms.read(rec), restore_stage_ms.read(rec)
-    assert smooth is not None and restore is not None and smooth > restore > 0
+    assert smooth is not None and restore is not None and smooth > 0 and restore > 0
     busy = [sum(d["end"] - d["start"] for d in rec["trace"]["device"]
                 if s <= (d["start"] + d["end"]) / 2 <= e) for s, e in rec["trace"]["ops"]]
     assert len(busy) == 3
@@ -1761,7 +1764,8 @@ def test_bilateral_dither_on_card_matches_cpu(cuda, fmt, args, launches, with_re
     ("YUV420P10", {"planes": [0, 1, 2], "strength": 32}), ("GRAYS", {"restore": 96}),
     ("YUV444PS", {"planes": [0, 1, 2], "restore": 64, "radius": 1}),
 ], ids=str)
-def test_mosquito_nr_on_card_matches_cpu(cuda, fmt, args):
+@pytest.mark.parametrize("layout", ["contiguous", "crop", "transposed"])
+def test_mosquito_nr_on_card_matches_cpu(cuda, fmt, args, layout):
     f = vt.get_format(fmt)
     g = torch.Generator(device=cuda).manual_seed(7)
     planes = []
@@ -1773,8 +1777,21 @@ def test_mosquito_nr_on_card_matches_cpu(cuda, fmt, args):
             top = 1 << f.bits_per_sample
             planes.append(torch.randint(0, top, shape, generator=g, device=cuda,
                                         dtype=torch.int32).to(f.torch_dtype))
+    # a caller's views reach the op as they are: a crop of wider planes, or
+    # planes stored transposed; the op hands the kernel contiguous copies
+    if layout == "crop":
+        wide = [q.new_zeros(q.shape[:2] + (q.shape[2] + 8,)) for q in planes]
+        for q, v in zip(planes, wide):
+            v[..., 4:-4] = q
+        planes = [v[..., 4:-4] for v in wide]
+    elif layout == "transposed":
+        planes = [q.transpose(1, 2).contiguous().transpose(1, 2) for q in planes]
+    assert all(q.is_contiguous() == (layout == "contiguous") for q in planes)
     c = vt.Clip.from_planes(planes, f, device=cuda)
+    trace.reset_launches()
     got = vt.mosquito_nr(c, **args)
+    # the smoothing kernel once a processed plane, never the plain version
+    assert kmn.LAUNCHES == {"mosquito_nr_smooth": len(args.get("planes", [0]))}
     want = vt.mosquito_nr(c.to("cpu"), **args)
     for g_, w_ in zip(got.planes, want.planes):
         assert g_.is_cuda and _same(g_.cpu(), w_)

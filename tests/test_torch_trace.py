@@ -14,13 +14,14 @@ import torch
 import vszip_tpu_torch as vt
 from vszip_tpu_torch import trace
 from vszip_tpu_torch.kernels import (bilateral, bilateral_dither, boxblur, checkmate, clahe,
-                                     comb_mask, compress, deband, eedi3, ssim, xpsnr)
+                                     comb_mask, compress, deband, eedi3, mosquito_nr, ssim,
+                                     xpsnr)
 
 # the op module (the package exports the op function under the same name)
 MOSQUITO = importlib.import_module("vszip_tpu_torch.ops.mosquito_nr")
 
 KERNEL_MODULES = (bilateral, bilateral_dither, boxblur, checkmate, clahe, comb_mask, compress,
-                  deband, eedi3, ssim, xpsnr)
+                  deband, eedi3, mosquito_nr, ssim, xpsnr)
 # each kernel wrapper and the launch counter its span is named after
 WRAPPERS = [(boxblur, "ct_blur_int", "ct_blur_int"), (boxblur, "rt_blur_h", "rt_blur_h"),
             (boxblur, "rt_blur_v_multi", "rt_blur_v_multi"), (boxblur, "rt_blur_v", "rt_blur_v"),
@@ -33,7 +34,9 @@ WRAPPERS = [(boxblur, "ct_blur_int", "ct_blur_int"), (boxblur, "rt_blur_h", "rt_
             (deband, "deband_center", "deband_center"),
             (deband, "deband_m2_center", "deband_m2_center"),
             (eedi3, "eedi3_fused", "eedi3_fused"), (eedi3, "eedi3_fused_hp", "eedi3_fused_hp"),
-            (eedi3, "vcheck", "vcheck"), (ssim, "ssim_partials", "ssim_sums"),
+            (eedi3, "vcheck", "vcheck"),
+            (mosquito_nr, "mosquito_nr_smooth", "mosquito_nr_smooth"),
+            (ssim, "ssim_partials", "ssim_sums"),
             (xpsnr, "luma_stats", "luma_stats"), (xpsnr, "chroma_sse", "chroma_sse"),
             (xpsnr, "chroma_sse_uv", "chroma_sse")]
 BOXBLUR = ["vszip.op.boxblur", "vszip.op.boxblur.derive"] + [

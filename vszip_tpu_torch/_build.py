@@ -17,6 +17,7 @@ library               source                               compiler
 ``compress``          ``csrc/compress.cu``                 nvcc (``sm_90a``)
 ``checkmate``         ``csrc/checkmate.cu``                nvcc (``sm_90a``)
 ``comb_mask``         ``csrc/comb_mask.cu``                nvcc (``sm_90a``)
+``mosquito_nr``       ``csrc/mosquito_nr.cu``              nvcc (``sm_90a``)
 ``deband_rng``        ``runtime/native/deband_rng.cpp``    g++
 ``dither``            ``runtime/native/dither.cpp``        g++
 ``png_unfilter``      ``runtime/native/png_unfilter.cpp``  g++
@@ -64,8 +65,9 @@ MAX_SMEM_BYTES = 232448
 
 # name -> (source relative to the package, extra flags).  deband.cu's mode 6
 # (the VCL pow polynomial), CLAHE's blend, EEDI3's cost, DP and
-# interpolation, SSIMULACRA2's blurs and maps, BilateralDither's tap sums and
-# Bilateral's window sums pin their f32 order:
+# interpolation, SSIMULACRA2's blurs and maps, BilateralDither's tap sums,
+# Bilateral's window sums and MosquitoNR's f32 SADs and blend pin their f32
+# order:
 # -fmad=false stops nvcc contracting a*b+c into FMA, so they round as the
 # plain torch versions.
 LIBRARIES = {
@@ -77,6 +79,7 @@ LIBRARIES = {
     "ssim": ("csrc/ssim.cu", ("-fmad=false",)),
     "bilateral_dither": ("csrc/bilateral_dither.cu", ("-fmad=false",)),
     "bilateral": ("csrc/bilateral.cu", ("-fmad=false",)),
+    "mosquito_nr": ("csrc/mosquito_nr.cu", ("-fmad=false",)),
     # integer only: nothing to contract
     "compress": ("csrc/compress.cu", ()),
     "checkmate": ("csrc/checkmate.cu", ()),

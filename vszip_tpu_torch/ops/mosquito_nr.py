@@ -18,20 +18,23 @@ Per plane:
    their LL bands mix by restore/128 and the inverse transform rebuilds the
    output from the mixed LL and the smoothed plane's detail bands.
 
-Plain torch on either device (no kernel: the JAX package has none either).
-Integers run in int32, which is bit-identical to the reference's i16 lanes
-for every valid pixel range; floats in f32, each product and sum rounded
-on its own.  By default only luma is processed.
+Steps 1-3 are ``kernels.mosquito_nr.mosquito_nr_smooth``: one CUDA launch a
+plane on the card, its plain torch version on the CPU (the JAX package has
+no kernel).  Step 4 is plain torch on either device.  Integers run in
+int32, which is bit-identical to the reference's i16 lanes for every valid
+pixel range; floats in f32, each product and sum rounded on its own.  By
+default only luma is processed.
 
 Each processed plane opens two spans, ``vszip.op.mosquito_nr.smooth``
-(steps 1-3) and ``vszip.op.mosquito_nr.restore`` (step 4 and the output's
-rounding, clamp and cast), and counts itself in ``PLANES``:
+(steps 1-3, the kernel's launch on the card) and
+``vszip.op.mosquito_nr.restore`` (step 4 and the output's rounding, clamp
+and cast), and counts itself in ``PLANES``:
 ``mosquito_nr_smoothed``, ``mosquito_nr_restored`` (restore != 0) and
 ``mosquito_nr_mixed`` (0 < restore < 128, the LL mix).
 Unlike other spans inside an op, both reach the profiler's trace
 (``profiled``), where the benchmark attributes each device operation to its
 stage: two ranges a plane cost a few microseconds of host time under the
-profiler, against a call's hundreds of launches and milliseconds of device
+profiler, against a call's tens of launches and milliseconds of device
 time.
 """
 
@@ -44,114 +47,11 @@ from .. import trace
 from ..core.clip import Clip
 from ..core.format import ColorFamily, SampleType
 from ..core.params import VSZipError, get_array, parse_planes, require
+from ..kernels import mosquito_nr as kmn
 
 FILTER_NAME = "MosquitoNR"
 PLANES = trace.register_launches({"mosquito_nr_smoothed": 0, "mosquito_nr_restored": 0,
                                   "mosquito_nr_mixed": 0})
-
-
-def _pad2(x: torch.Tensor) -> torch.Tensor:
-    """2-pixel reflect-101 border on both axes."""
-    x = torch.cat([x[:, 1:3].flip(1), x, x[:, -3:-1].flip(1)], dim=1)
-    return torch.cat([x[:, :, 1:3].flip(2), x, x[:, :, -3:-1].flip(2)], dim=2)
-
-
-def _half(a, is_int):
-    return (a >> 1) if is_int else a * 0.5
-
-
-def _sads(t, radius, is_int):
-    """Direction per pixel (0-7, or 8 for flat) from the tap view `t(dy, dx)`."""
-    c = t(0, 0)
-
-    def A(v):
-        return (v - c).abs()
-
-    def H(a, b):
-        return (_half(a + b, is_int) - c).abs()
-
-    if radius == 1:
-        sad = [
-            A(t(0, -1)) + A(t(0, 1)),
-            A(t(-1, -1)) + A(t(1, 1)),
-            A(t(-1, 0)) + A(t(1, 0)),
-            A(t(-1, 1)) + A(t(1, -1)),
-            H(t(0, -1), t(-1, -1)) + H(t(0, 1), t(1, 1)),
-            H(t(-1, -1), t(-1, 0)) + H(t(1, 1), t(1, 0)),
-            H(t(-1, 0), t(-1, 1)) + H(t(1, 0), t(1, -1)),
-            H(t(0, 1), t(-1, 1)) + H(t(0, -1), t(1, -1)),
-        ]
-    else:
-        sad = [
-            A(t(0, -1)) + A(t(0, 1)) + A(t(0, -2)) + A(t(0, 2)),
-            A(t(-1, -1)) + A(t(1, 1)) + A(t(-2, -2)) + A(t(2, 2)),
-            A(t(-1, 0)) + A(t(1, 0)) + A(t(-2, 0)) + A(t(2, 0)),
-            A(t(-1, 1)) + A(t(1, -1)) + A(t(-2, 2)) + A(t(2, -2)),
-            A(t(-1, -2)) + A(t(1, 2)) + H(t(0, -1), t(-1, -1)) + H(t(0, 1), t(1, 1)),
-            A(t(-2, -1)) + A(t(2, 1)) + H(t(-1, -1), t(-1, 0)) + H(t(1, 1), t(1, 0)),
-            A(t(-2, 1)) + A(t(2, -1)) + H(t(-1, 0), t(-1, 1)) + H(t(1, 0), t(1, -1)),
-            A(t(-1, 2)) + A(t(1, -2)) + H(t(-1, 1), t(0, 1)) + H(t(1, -1), t(0, -1)),
-        ]
-    best = sad[0]
-    idx = torch.zeros(c.shape, dtype=torch.int32, device=c.device)
-    for i in range(1, 8):
-        lt = sad[i] < best
-        idx = torch.where(lt, i, idx)
-        best = torch.where(lt, sad[i], best)
-    return torch.where(best == 0, 8, idx)
-
-
-def _blend(t, dirs, strength, radius, is_int):
-    c = t(0, 0)
-    s = strength if is_int else float(np.float32(strength))
-    if radius == 1:
-        coef0, coef1, coef2 = 64 - 2 * s, 128 - 4 * s, s
-        lo_shift, hi_shift = 6, 7
-    else:
-        coef0, coef1, coef2 = 128 - 4 * s, 256 - 8 * s, s
-        coef3 = 2 * s
-        lo_shift, hi_shift = 7, 8
-
-    def lo(acc):
-        if is_int:
-            return (acc + (1 << (lo_shift - 1))) >> lo_shift
-        return acc * (1.0 / (1 << lo_shift))
-
-    def hi(acc):
-        if is_int:
-            return (acc + (1 << (hi_shift - 1))) >> hi_shift
-        return acc * (1.0 / (1 << hi_shift))
-
-    if radius == 1:
-        arms = [
-            lambda: lo(coef0 * c + coef2 * (t(0, -1) + t(0, 1))),
-            lambda: lo(coef0 * c + coef2 * (t(-1, -1) + t(1, 1))),
-            lambda: lo(coef0 * c + coef2 * (t(-1, 0) + t(1, 0))),
-            lambda: lo(coef0 * c + coef2 * (t(-1, 1) + t(1, -1))),
-            lambda: hi(coef1 * c + coef2 * (t(-1, -1) + t(0, -1) + t(0, 1) + t(1, 1))),
-            lambda: hi(coef1 * c + coef2 * (t(-1, -1) + t(-1, 0) + t(1, 0) + t(1, 1))),
-            lambda: hi(coef1 * c + coef2 * (t(-1, 1) + t(-1, 0) + t(1, 0) + t(1, -1))),
-            lambda: hi(coef1 * c + coef2 * (t(-1, 1) + t(0, 1) + t(0, -1) + t(1, -1))),
-        ]
-    else:
-        arms = [
-            lambda: lo(coef0 * c + coef2 * (t(0, -2) + t(0, -1) + t(0, 1) + t(0, 2))),
-            lambda: lo(coef0 * c + coef2 * (t(-2, -2) + t(-1, -1) + t(1, 1) + t(2, 2))),
-            lambda: lo(coef0 * c + coef2 * (t(-2, 0) + t(-1, 0) + t(1, 0) + t(2, 0))),
-            lambda: lo(coef0 * c + coef2 * (t(-2, 2) + t(-1, 1) + t(1, -1) + t(2, -2))),
-            lambda: hi(coef1 * c + coef3 * (t(-1, -2) + t(1, 2))
-                       + coef2 * (t(-1, -1) + t(0, -1) + t(0, 1) + t(1, 1))),
-            lambda: hi(coef1 * c + coef3 * (t(-2, -1) + t(2, 1))
-                       + coef2 * (t(-1, -1) + t(-1, 0) + t(1, 0) + t(1, 1))),
-            lambda: hi(coef1 * c + coef3 * (t(-2, 1) + t(2, -1))
-                       + coef2 * (t(-1, 1) + t(-1, 0) + t(1, 0) + t(1, -1))),
-            lambda: hi(coef1 * c + coef3 * (t(-1, 2) + t(1, -2))
-                       + coef2 * (t(-1, 1) + t(0, 1) + t(0, -1) + t(1, -1))),
-        ]
-    out = c
-    for i, arm in enumerate(arms):
-        out = torch.where(dirs == i, arm(), out)
-    return out
 
 
 def _q2(v, is_int):
@@ -198,31 +98,17 @@ def _inv_axis(a, d, axis, n, is_int):
     return out.movedim(1, axis)
 
 
-def _smooth(work, strength: int, radius: int, is_int: bool):
-    """Steps 2-3 on the work plane; the padded plane and the directions go
-    with the stage."""
-    h, w = work.shape[1:]
-    p = _pad2(work)
-
-    def tap(dy, dx):
-        return p[:, 2 + dy:2 + dy + h, 2 + dx:2 + dx + w]
-
-    dirs = _sads(tap, radius, is_int)
-    return _blend(tap, dirs, strength, radius, is_int)
-
-
 def _mosquito_plane(x, strength: int, restore: int, radius: int, bits: int, is_int: bool,
                     chroma: bool):
     n, h, w = x.shape
     with trace.span("vszip.op.mosquito_nr.smooth"):
         PLANES["mosquito_nr_smoothed"] += 1
-        if is_int:
-            work = x.to(torch.int32) << 4
-            lo_clamp, hi_clamp = 0, (1 << bits) - 1
-        else:
-            work = x.to(torch.float32)
-            lo_clamp, hi_clamp = (-0.5, 0.5) if chroma else (0.0, 1.0)
-        blur = _smooth(work, strength, radius, is_int)
+        # a clip may hold views; the kernel takes contiguous planes
+        blur, work = kmn.mosquito_nr_smooth(x.contiguous(), strength, radius, restore != 0)
+    if is_int:
+        lo_clamp, hi_clamp = 0, (1 << bits) - 1
+    else:
+        lo_clamp, hi_clamp = (-0.5, 0.5) if chroma else (0.0, 1.0)
 
     with trace.span("vszip.op.mosquito_nr.restore"):
         out = blur
