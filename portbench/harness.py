@@ -18,12 +18,20 @@ Two drivers, chosen by the traffic mix's ``mode``:
 Both warm up every shape the window uses (``warmup`` batches, or chunks, of
 the mix), then measure for ``seconds``.  Batches that complete after the
 window are neither counted nor compared.
+
+A metric op's configuration (one with ``compare``, see ``check.py``) also
+names ``distorted``: the resident driver then makes a second pool from the
+first in set-up (``frames.distort``, index for index), calls the op on the
+two clips' batches, and samples the named frame props of completed batches
+instead of their planes.  A configuration with ``"range": "limited"`` has its
+pools made in the limited range.
 """
 
 from __future__ import annotations
 
 import collections
 import random
+import statistics
 import time
 from pathlib import Path
 
@@ -81,6 +89,10 @@ class Cell:
         self.reference = spec.load_file(root, "reference", self.cfg["reference"])
         self.shapes = [tuple(s) for s in self.cfg["planes"]]
         self.batch = self.mix["batch"]
+        self.metric = "compare" in self.cfg
+        self.limited = self.cfg.get("range") == "limited"
+        if self.metric and self.mix["mode"] != "resident":
+            raise spec.SpecError(f"{workload}: a metric op runs in the resident mode only")
 
     def event(self):
         return torch.cuda.Event() if self.cuda else _HostEvent()
@@ -91,7 +103,23 @@ class Cell:
 
     def pool(self) -> tuple:
         return frames.make_planes(self.seed, self.mix["pool"], self.shapes, self.cfg["bits"],
-                                  self.device)
+                                  self.device, limited=self.limited)
+
+    def pools(self) -> tuple:
+        """The op's input pools: the source pool, and for a metric op the
+        distorted one made from it."""
+        pool = self.pool()
+        if not self.metric:
+            return (pool,)
+        return pool, frames.distort(self.seed, pool, self.cfg["bits"], self.cfg["distorted"],
+                                    self.limited)
+
+    def sampled(self, out):
+        """What the check compares of an op's output: its planes, or a
+        metric op's named props (None where one is missing)."""
+        if not self.metric:
+            return out.planes
+        return tuple(out.props.get(name) for name in self.cfg["compare"]["props"])
 
     def batch_frames(self, pool: tuple, index: int) -> tuple:
         k = (index % (self.mix["pool"] // self.batch)) * self.batch
@@ -101,30 +129,30 @@ class Cell:
 def _program_op(vt, cfg: dict):
     fn = getattr(vt, cfg["op"])
     args = dict(cfg["args"])
-    return lambda clip: fn(clip, **args)
+    return lambda *clips: fn(*clips, **args)
 
 
 def _resident(cell: Cell, vt, op, tracer: Tracer, sample: Reservoir) -> dict:
     fmt = vt.get_format(cell.cfg["format"])
-    pool = cell.pool()
+    pools = cell.pools()
     cell.sync()
     t_pool = time.perf_counter()
     depth = cell.mix["in_flight"]
 
-    def clip(i):
-        return vt.Clip(cell.batch_frames(pool, i), fmt, {})
+    def clips(i):
+        return tuple(vt.Clip(cell.batch_frames(pool, i), fmt, {}) for pool in pools)
 
     # warm-up: `warmup` batches alive at once, so that the allocator holds
     # what the window keeps alive (the sample and the batches in flight)
-    held = [op(clip(i)) for i in range(cell.mix["warmup"])]
-    tracer.warm(lambda: op(clip(0)))
+    held = [op(*clips(i)) for i in range(cell.mix["warmup"])]
+    tracer.warm(lambda: op(*clips(0)))
     cell.sync()
     del held
     if cell.cuda:
         torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
     t_end = t0 + cell.seconds
-    tracer.start_at = t0 + max(0.0, (cell.seconds - tracer.seconds * 2) / 2)
+    tracer.begin(t0, cell.seconds)
     inflight = collections.deque()
     batches, issued = [], 0
     while True:
@@ -132,11 +160,11 @@ def _resident(cell: Cell, vt, op, tracer: Tracer, sample: Reservoir) -> dict:
         tracer.tick(now)
         if now >= t_end:
             break
-        c = clip(issued)
+        c = clips(issued)
         ended = cell.event()
         t_issue = time.perf_counter()
         with tracer.span("portbench.op"):
-            out = op(c)
+            out = op(*c)
         ended.record()
         tracer.called()
         inflight.append((issued, t_issue, ended, out))
@@ -149,11 +177,11 @@ def _resident(cell: Cell, vt, op, tracer: Tracer, sample: Reservoir) -> dict:
             td = time.perf_counter()
             if td <= t_end:
                 batches.append({"start": ti, "done": td, "frames": cell.batch})
-                sample.offer(i, o.planes)
+                sample.offer(i, cell.sampled(o))
             del o
     cell.sync()
     tracer.finish()
-    return {"t_pool": t_pool, "t0": t0, "batches": batches, "attempted": issued, "pool": pool,
+    return {"t_pool": t_pool, "t0": t0, "batches": batches, "attempted": issued, "pool": pools,
             "stream": None}
 
 
@@ -211,7 +239,7 @@ def _streamed(cell: Cell, vt, op, tracer: Tracer, sample: Reservoir) -> dict:
     chunks = int(STREAM_CHUNKS_PER_S * cell.seconds) + 4
     t0 = time.perf_counter()
     window["end"] = t0 + cell.seconds
-    tracer.start_at = t0 + max(0.0, (cell.seconds - tracer.seconds * 2) / 2)
+    tracer.begin(t0, cell.seconds)
     try:
         vt.process_stream(vt.SyntheticSource(make, fmt, chunks * batch), traced_op,
                           batch=batch, sink=sink, device=device)
@@ -258,10 +286,18 @@ def run_cell(root: Path, workload: str, seed: int, seconds: float, trace: bool,
     t_check = time.perf_counter()
     items = sample.items
     del run["pool"], sample
-    pool = cell.pool() if items else None
-    results = [check.compare(cell.reference, cell.cfg, cell.batch_frames(pool, i), out,
-                             cell.device) for i, out in items]
-    del pool, items
+    if cell.metric:
+        pools = cell.pools() if items else ()
+        results = [check.compare_props(cell.reference, cell.cfg,
+                                       tuple(cell.batch_frames(p, i) for p in pools), out,
+                                       cell.device) for i, out in items]
+        del pools
+    else:
+        pool = cell.pool() if items else None
+        results = [check.compare(cell.reference, cell.cfg, cell.batch_frames(pool, i), out,
+                                 cell.device) for i, out in items]
+        del pool
+    del items
     extra = {}
     if "missing" in run:
         extra["chunks_out_of_order"] = {"value": run["missing"], "limit": 0}
@@ -272,10 +308,13 @@ def run_cell(root: Path, workload: str, seed: int, seconds: float, trace: bool,
 
     nbytes, int_ops, f32_ops = cell.reference.work(cell.cfg, cell.batch)
     least, bound_by = least_ms(nbytes, int_ops, f32_ops)
+    # the work of the op's stages that a reference module counts on its own
+    stages = getattr(cell.reference, "stage_work", None)
     rec = {"window_s": cell.seconds, "setup_s": setup_s, "batches": run["batches"],
            "stream": run["stream"], "trace": tracer.kept,
            "cost": {"bytes": nbytes, "int_ops": int_ops, "f32_ops": f32_ops,
-                    "least_ms": least, "bound_by": bound_by}}
+                    "least_ms": least, "bound_by": bound_by,
+                    "stages": stages(cell.cfg, cell.batch) if stages else {}}}
     metrics = {}
     for m in spec.metrics(cell.bench, workload, trace):
         value = spec.load_file(root, "metrics", m["name"]).read(rec)
@@ -297,6 +336,9 @@ def run_cell(root: Path, workload: str, seed: int, seconds: float, trace: bool,
             result["breakdown"] = breakdown(t)
         result["bound"] = {"least_ms_per_batch": least, "by": bound_by}
         result["trace_slices"] = tracer.notes
+    values = [v for r in results for v in r.get("values", [])]
+    if values:
+        result["sampled_value_median"] = statistics.median(values)
     result["setup"] = {"torch_s": t_program - t_start, "program_import_s": t_import - t_program,
                        "frames_s": run["t_pool"] - t_import,
                        "warmup_s": run["t0"] - run["t_pool"], "check_s": t_checked - t_check}

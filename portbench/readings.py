@@ -4,10 +4,11 @@
 
 Runs the cell once per seed in one process (the program's build and the
 card's set-up are paid once), each with a short window at the cell's own
-load, and prints each run's compared numbers.  ``--as control`` puts the
-plain reference in the configuration's lower precision in the program's place
-(``faults.control``), ``--as unchanged|half|altered`` a planted fault.  The
-benchmark's own runs never do this.  Needs a CUDA device.
+load, and prints each run's compared numbers (for a metric op also the
+median of the reference's values over the sampled frames).  ``--as control``
+puts the plain reference in the configuration's lower precision in the
+program's place (``faults.control``), ``--as unchanged|half|altered`` a
+planted fault.  The benchmark's own runs never do this.  Needs a CUDA device.
 """
 
 import argparse
@@ -43,6 +44,8 @@ def main() -> int:
         line = {"workload": a.workload, "as": a.stand_in or "program", "seed": seed,
                 "correct": r["correct"], "attempted": r["attempted"],
                 "checks": {k: v["value"] for k, v in r["checks"].items()}}
+        if "sampled_value_median" in r:
+            line["sampled_value_median"] = r["sampled_value_median"]
         print(json.dumps(line), flush=True)
         torch.cuda.empty_cache()
     return 0

@@ -112,11 +112,17 @@ def test_each_cell_finds_its_files_by_name(workload):
     w, cfg, mix = spec.cell(REPO, BENCH, workload)
     assert cfg["name"] == w["config"]
     ref = spec.load_file(REPO, "reference", cfg["reference"])
-    assert callable(ref.run) and callable(ref.work)
+    assert callable(ref.score if "compare" in cfg else ref.run) and callable(ref.work)
     for m in spec.metrics(BENCH, workload, False) + spec.metrics(BENCH, workload, True):
         assert callable(spec.load_file(REPO, "metrics", m["name"]).read)
     assert mix["pool"] % mix["batch"] == 0
-    assert set(cfg["limits"]) == {"max_abs_lsb", "off_share_pct"}
+    if "compare" in cfg:
+        # a metric op: two clips in, frame props out, compared under a score limit
+        assert cfg["compare"]["props"] and set(cfg["limits"]) == {"max_abs_score"}
+        assert mix["mode"] == "resident"
+        assert {"blur", "quant", "noise"} <= set(cfg["distorted"])
+    else:
+        assert set(cfg["limits"]) == {"max_abs_lsb", "off_share_pct"}
 
 
 def test_a_missing_file_is_named():

@@ -37,20 +37,59 @@ def _tracer_over(monkeypatch, slices):
     return t
 
 
-def test_the_fuller_of_two_agreeing_slices_is_kept(monkeypatch):
-    a, b = _slice(100, 5.98), _slice(100, 6.0)
-    t = _tracer_over(monkeypatch, [a, b])
-    assert t.done and t.kept is b
-    t = _tracer_over(monkeypatch, [_slice(100, 6.0), _slice(100, 5.98)])
-    assert len(t.kept["device"]) == 600
-
-
-def test_no_slice_is_kept_when_none_agree(monkeypatch):
-    slices = [_slice(100, 6.0, 100.0), _slice(100, 6.0, 150.0), _slice(100, 5.0),
-              _slice(100, 6.0, 80.0)]
+def test_the_fullest_slice_is_kept(monkeypatch):
+    slices = [_slice(100, 5.9), _slice(100, 6.0), _slice(100, 5.95), _slice(100, 6.0, 99.0)]
     t = _tracer_over(monkeypatch, slices)
+    assert not t.done and t.kept is None
+    t.finish()
+    assert t.done and t.kept is slices[1]
+
+
+def test_a_slice_timed_short_is_not_kept(monkeypatch):
+    slices = [_slice(100, 2.99), _slice(100, 3.0, 85.0), _slice(100, 2.99), _slice(100, 2.98)]
+    t = _tracer_over(monkeypatch, slices)
+    t.finish()
+    assert t.kept is slices[0]
+
+
+def test_the_fullest_is_kept_where_no_time_is_near_the_median(monkeypatch):
+    slices = [_slice(100, 5.0, 100.0), _slice(100, 6.0, 150.0)]
+    t = _tracer_over(monkeypatch, slices)
+    t.finish()
+    assert t.kept is slices[1]
+
+
+def test_slices_are_taken_up_to_tries(monkeypatch):
+    slices = [_slice(100, 6.0 - 0.01 * i) for i in range(trace.TRIES + 2)]
+    t = _tracer_over(monkeypatch, slices)
+    assert t.done and t.tries == trace.TRIES == len(t.notes)
+    t.finish()
+    assert t.kept is slices[0]
+
+
+def test_no_slice_is_kept_without_device_work(monkeypatch):
+    t = _tracer_over(monkeypatch, [_slice(100, 0.0), _slice(0, 0.0)])
+    t.finish()
     assert t.done and t.kept is None
-    assert len(t.notes) == trace.TRIES
+
+
+def test_a_slice_cut_by_the_windows_close_is_read_only_when_first(monkeypatch):
+    a, b = _slice(100, 6.0), _slice(3, 6.0)
+    t = _tracer_over(monkeypatch, [a])
+    monkeypatch.setattr(trace, "_records", lambda prof, calls: b)
+    t.prof, t.mark = _Null(), _Null()
+    t.finish()
+    assert t.kept is a and "cut" in t.notes[-1]
+    t = trace.Tracer(True, torch.device("cpu"), seconds=1.0)
+    t.prof, t.mark = _Null(), _Null()
+    t.finish()
+    assert t.kept is b
+
+
+def test_the_first_slice_starts_a_share_into_the_window():
+    t = trace.Tracer(True, torch.device("cpu"), seconds=2.0)
+    t.begin(100.0, 30.0)
+    assert t.start_at == 100.0 + trace.LEAD * 30.0
 
 
 def test_breakdown_names_gaps_by_the_innermost_host_range():

@@ -8,24 +8,29 @@ for the device again and stops.  So the slice holds every kernel of the op
 calls issued inside it and no other.
 
 On the H100 the profiler has returned traces with no device activity and
-traces short by 5-16% of the device time, and drops a few kernels of some
-slices (2 of 10,560).  Slices are taken back to back, up to ``TRIES``; of
-the first two in a row that agree (kernels per call and device time per call
-each within ``TOL`` of the other's) the one with more kernels per call, the
-one that lost fewer, is kept.  When no two agree,
-the trace is reported missing and the metrics that read it are left out of
-the result: never read as 0.
+traces short by 5-16% of the device time with every kernel in them, and
+loses kernels of some slices (2 of 10,560 in a cell of 6 kernels a call; at
+some 35,000 kernels a second, 0.05-58% of a slice's in 17 of 26 slices).  So
+slices are taken back to back from ``LEAD`` of the window on, up to
+``TRIES`` or the window's end (a slice that the window's close cuts short is
+read only when it is the first), and of those whose device time per call
+lies within ``TOL`` of the slices' median, the fullest (most kernels per
+call; the first of equals) is kept: of all of them where none does.  Only
+when no slice holds a kernel is the trace reported missing, and the metrics
+that read it are left out of the result: never read as 0.
 """
 
 from __future__ import annotations
 
 import contextlib
+import statistics
 import time
 
 import numpy as np
 import torch
 
-TRIES = 4
+TRIES = 8
+LEAD = 0.2      # share of the window before the first slice starts
 TOL = 0.02
 COPIES = ("Memcpy HtoD", "Memcpy DtoH")
 PAGEABLE = "Pageable"   # in the name of a copy to or from pageable host memory
@@ -44,8 +49,9 @@ class Tracer:
         self.prof = None
         self.calls = 0
         self.t0 = 0.0
-        self.slices = []          # (records, kernels per call, device s per call)
-        self.kept = None          # the kept slice's records; None while no two agree
+        self.tries = 0
+        self.slices = []          # (records, (kernels, device us) per call) with kernels
+        self.kept = None          # the kept slice's records, once the window has closed
         self.done = not enabled
         self.notes = []           # per slice: what it held, for standard error
 
@@ -74,6 +80,10 @@ class Tracer:
         if self.cuda:
             torch.cuda.synchronize()
 
+    def begin(self, t0: float, seconds: float) -> None:
+        """Set the first slice's start for a window of `seconds` from `t0`."""
+        self.start_at = t0 + LEAD * seconds
+
     def called(self) -> None:
         if self.prof is not None:
             self.calls += 1
@@ -95,36 +105,48 @@ class Tracer:
     def finish(self) -> None:
         """End a slice still running when the window closes."""
         if self.prof is not None:
-            self._stop()
+            self._stop(cut=True)
+        self.kept = _kept(self.slices)
         self.done = True
 
-    def _stop(self) -> None:
+    def _stop(self, cut: bool = False) -> None:
         self._sync()
         self.mark.__exit__(None, None, None)
+        t_stop = time.perf_counter()
         self.prof.stop()
         t = time.perf_counter()
-        rec = _records(self.prof, self.calls)
-        self.prof = None
+        prof, self.prof = self.prof, None
+        if cut and self.slices:
+            self.notes.append({"calls": self.calls, "cut": "by the window's close, not read"})
+            return
+        rec = _records(prof, self.calls)
         names = {}
         for d in rec["device"]:
             names[d["name"][:48]] = names.get(d["name"][:48], 0) + 1
         self.notes.append({"calls": rec["calls"], "device": len(rec["device"]),
                            "window_s": rec["window_s"], "busy_s": rec["busy_s"],
-                           "read_s": time.perf_counter() - t,
+                           "stop_s": t - t_stop, "read_s": time.perf_counter() - t,
                            "names": sorted(names.items(), key=lambda kv: -kv[1])[:8]})
-        if rec["calls"] and rec["device"]:
-            kernels = [d for d in rec["device"] if not d["copy"]]
+        kernels = [d for d in rec["device"] if not d["copy"]]
+        if rec["calls"] and kernels:
             per_call = (len(kernels) / rec["calls"],
                         sum(d["end"] - d["start"] for d in kernels) / rec["calls"])
             self.notes[-1]["per_call"] = per_call
-            last, prev = self.slices[-1] if self.slices else (None, None)
-            if prev is not None and all(abs(a - b) <= TOL * b for a, b in zip(per_call, prev)):
-                self.kept = last if prev[0] >= per_call[0] else rec
             self.slices.append((rec, per_call))
-        else:
-            self.slices.append((rec, None))
-        if self.kept is not None or len(self.slices) >= TRIES:
+        self.tries += 1
+        if self.tries >= TRIES:
             self.done = True
+
+
+def _kept(slices: list):
+    """Of the slices whose device time per call lies within TOL of their
+    median (of all, where none does), the records of the one with the most
+    kernels per call, the first of equals; None without a slice."""
+    if not slices:
+        return None
+    mid = statistics.median(pc[1] for _, pc in slices)
+    sound = [s for s in slices if abs(s[1][1] - mid) <= TOL * mid] or slices
+    return max(sound, key=lambda s: s[1][0])[0]
 
 
 def union(device: list, window: tuple) -> tuple[list, float]:
